@@ -15,7 +15,7 @@ A 256-symbol problem is tiny (the reference measures 0.33 ms for 2 blocks),
 so this runs on host; the resulting code tables are broadcast to devices as
 (len, bits) integer LUTs via `code_table_arrays`.
 
-Useful structural facts (used by the TPU decoder, kernels/decode.py):
+Useful structural facts (used by the device decoder, kernels/decode.py):
   * the split always leaves both halves non-empty, so the code tree is full —
     the code is COMPLETE: every bit-window matches exactly one code;
   * codes listed in rank order are strictly increasing lexicographically

@@ -1,7 +1,7 @@
 """Multi-device execution: block data parallelism over a JAX mesh.
 
-This is the TPU-native replacement for the reference's only parallelism —
-the per-block thread pipeline with ordered writes (multithread.c:126-194;
+This is the device counterpart of the reference's only parallelism — the
+per-block thread pipeline with ordered writes (multithread.c:126-194;
 SURVEY.md §2 component 7). Blocks are independent by construction, so:
 
   * the batch axis B of every kernel shards over a 1-D ``blocks`` mesh axis
@@ -14,8 +14,9 @@ SURVEY.md §2 component 7). Blocks are independent by construction, so:
     sidecar streams (.freq/.cod — KB-scale ASCII) are produced on host 0.
 
 No cross-block collectives exist in the compute path: per SURVEY.md §5.7 the
-workload is embarrassingly parallel at block granularity, so ICI carries only
-the (tiny) size gathers done implicitly by fetching results to host.
+workload is embarrassingly parallel at block granularity, so the
+interconnect carries only the (tiny) size gathers done implicitly by
+fetching results to host.
 """
 
 from __future__ import annotations
@@ -23,13 +24,11 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .kernels import decode as kdecode
 from .kernels import histogram as khist
-from .kernels import ops as kops
 from .kernels import pack as kpack
 from .kernels import rle as krle
 
@@ -78,10 +77,6 @@ class ShardedKernels:
             khist.histogram_batch,
             in_specs=(P(AXIS, None), P(AXIS)),
             out_specs=P(AXIS, None)))
-        # kpack.pack_batch dispatches per platform: the Pallas emission
-        # kernel per shard on TPU meshes (kernels/emit_pallas.py), the XLA
-        # two-stage composite on the CPU test mesh — so the mesh path runs
-        # the same production emission as single-chip, per shard.
         self._pack = jax.jit(spec(
             kpack.pack_batch,
             in_specs=(P(AXIS, None), P(AXIS), P(AXIS, None), P(AXIS, None)),
@@ -110,9 +105,6 @@ class ShardedKernels:
     def histogram_dev(self, x, lens):
         return self._hist(x, lens)
 
-    def pack_dev(self, x, lens, code_lens, code_vals):
-        return self._pack(x, lens, code_lens, code_vals)
-
     def pack_compact_dev(self, x, lens, code_lens, code_vals, bound: int):
         """Sharded pack + PER-SHARD compaction: exact payload bytes.
 
@@ -121,12 +113,13 @@ class ShardedKernels:
         array — shard d's rows lie back-to-back at [d * bound, ...) — plus
         the (B,) packed byte lengths. Downloading D * bound ~ payload size
         closes the mesh path's padded-row transfer gap vs single-device
-        compaction (kernels run per shard: Pallas on TPU, XLA elsewhere).
+        compaction.
         """
         if bound not in self._pack_compact:
             def fn(xx, ll, cl, cv, bound=bound):
-                words, out_len = kpack.pack_batch_words(xx, ll, cl, cv)
-                flat = kops.compact_words(words, out_len, bound)
+                off, val, bit_total, out_len = kpack.pack_stage1(xx, ll, cl,
+                                                                 cv)
+                flat = kpack.pack_compact(off, val, bit_total, out_len, bound)
                 return flat, out_len
             self._pack_compact[bound] = jax.jit(self._spec(
                 fn,

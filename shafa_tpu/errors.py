@@ -6,7 +6,7 @@ drop-in compatible: same codes, same stderr strings, exit status 1 on any error
 (src/shafa.c:310-316).
 
 Unlike the reference (which transports error ints through thread return values,
-errors.h:5-6), we use a normal exception hierarchy: the TPU execution model has
+errors.h:5-6), we use a normal exception hierarchy: the device execution model has
 no per-block worker threads to smuggle ints through — errors surface from jit
 boundaries and host IO directly.
 """

@@ -95,8 +95,3 @@ def geometry_for_file(path: str, block_size: int) -> BlockGeometry:
     """fsize() equivalent; os.stat replaces the reference's seek/ftell dance
     (including its >2 GiB fread fallback, file.c:91-108 — stat has no such limit)."""
     return geometry_for_size(os.stat(path).st_size, block_size)
-
-
-def pad_to(n: int, multiple: int) -> int:
-    """Round up to a multiple (for TPU lane/sublane alignment)."""
-    return -(-n // multiple) * multiple

@@ -1,13 +1,10 @@
-"""Device kernels (JAX/XLA + Pallas) for the four hot paths.
+"""Device kernels (plain JAX/XLA) for the codec's hot paths.
 
-Strategy notes (measured on TPU v5e, see bench/probe history):
-  * sorted scatter-add and large-array gathers run near HBM speed (~300-435
-    GB/s) under XLA — variable-rate emission uses them directly;
-  * small-LUT random gathers are ~90 Melem/s — LUT lookups instead go through
-    nibble-split one-hot matmuls on the MXU;
-  * searchsorted is unusable on TPU — rank computations use broadcast
-    compares (hierarchical 16+16 pivots);
-  * histograms use 4-bit one-hot outer products contracted on the MXU.
+  * rle       RLE encode / expand as segment scans + output-centric gathers;
+  * histogram 256-bin byte counts per block;
+  * pack      Shannon-Fano bit-pack (per-block code LUT + bit-offset scan);
+  * decode    prefix decode by code rank + pointer-doubling symbol chain;
+  * ops       shared primitives (scans, segment binary search, compaction).
 """
 
 from . import histogram, ops, pack, rle  # noqa: F401

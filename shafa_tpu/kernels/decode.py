@@ -1,4 +1,4 @@
-"""Shannon-Fano prefix decode — module D's trie walk (d.c:514-551), TPU-way.
+"""Shannon-Fano prefix decode — module D's trie walk (d.c:514-551), batched.
 
 The reference walks a pointer trie bit-by-bit (~8 branches per compressed
 byte — its hottest loop). That cannot run on a vector machine; instead we
@@ -15,10 +15,9 @@ Pipeline (all batched over blocks, flat over bit positions):
   2. rank       hierarchical compare: 16 pivots -> group, 16 in-group
                 thresholds (fetched by one-hot matmul, exact via u16 halves)
   3. len/sym    prefix-delta dot products against the same compare masks
-                (integer-exact in f32; avoids 256-entry gathers which are
-                ~90 Melem/s on v5e)
+                (integer-exact in f32 at Precision.HIGHEST)
   4. chain      symbol starts p0=0, p_{k+1} = p_k + len[p_k]: pointer
-                doubling with large-array gathers (~435 GB/s measured)
+                doubling with large-array gathers
   5. emit       gather sym at chain positions; positions past the known
                 output count are masked (decode terminates on count, not
                 input exhaustion — d.c:530).
@@ -26,13 +25,9 @@ Pipeline (all batched over blocks, flat over bit positions):
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 N_GROUPS = 16
 GROUP = 16
@@ -97,14 +92,16 @@ def decode_tables_batch(lens: np.ndarray, vals: np.ndarray) -> dict:
 
     lens (n, 256) uint8, vals (n, 256) uint64 left-aligned (CodeTables
     layout). Every row must have max code length <= 32 and at least one code
-    (callers filter; violations would silently decode garbage, so asserted).
+    (callers filter; a violating row would silently decode garbage, so it
+    raises ValueError).
     Produces the same stacked dict as stack_decode_tables(map(
     decode_tables_u32, ...)).
     """
     n = lens.shape[0]
     present = lens > 0
     n_codes = present.sum(1).astype(np.int32)
-    assert n == 0 or (int(lens.max()) <= 32 and int(n_codes.min()) >= 1)
+    if n and (int(lens.max()) > 32 or int(n_codes.min()) < 1):
+        raise ValueError("decode tables need 1..32-bit codes in every row")
     # Sort present codes ascending by left-aligned value (rank order);
     # absent symbols to the back (their vals are 0, so force the key up).
     key = np.where(present, vals, np.uint64(0xFFFFFFFFFFFFFFFF))
@@ -148,11 +145,9 @@ def decode_tables_batch(lens: np.ndarray, vals: np.ndarray) -> dict:
 def _windows32(payload: jnp.ndarray) -> jnp.ndarray:
     """(B, P) uint8 -> (B, 8P) uint32 windows in PLANE-MAJOR slot order.
 
-    Slot i = s*P + j holds the 32-bit window starting at bit 8j + s. The
-    natural bit-position order would be a (B, P, 8)-stack-then-reshape, but
-    a minor-most dim of 8 pads to 128 lanes under TPU tiling — a 16x HBM
-    blowup (34 GB for a 64 MiB batch, observed OOM). Plane-major keeps P
-    minor-most; all consumers translate slot <-> bit arithmetically.
+    Slot i = s*P + j holds the 32-bit window starting at bit 8j + s.
+    Plane-major keeps P minor-most; all consumers translate slot <-> bit
+    arithmetically.
     """
     b, p = payload.shape
     by = payload.astype(jnp.uint32)
@@ -190,7 +185,7 @@ def _rank_fields(w: jnp.ndarray, t: dict):
     oh = (c1[..., None] == grp_ids).astype(jnp.float32)  # (B, N, 16)
 
     def fetch16(tab2d_f32):  # (B,16,16) f32 -> (B,N,16) rows by group
-        # HIGHEST: TPU's default f32 matmul rounds through bf16, which
+        # HIGHEST: a reduced-precision f32 matmul (bf16 or TF32 inputs)
         # corrupts the 16-bit table halves (values up to 65535).
         return jax.lax.dot_general(
             oh, tab2d_f32.astype(jnp.float32),
@@ -220,9 +215,9 @@ def _rank_fields(w: jnp.ndarray, t: dict):
 
 
 #: stage1 byte-chunk width: bounds the (B, 8*chunk, 16) one-hot temporaries
-#: of the hierarchical rank. Unchunked, a (4, 8 MiB) batch materializes a
-#: 16 GB one-hot and OOMs the 16 GB HBM (observed on v5e); at 2^18 bytes
-#: the peak temp is ~(B * 2^21 * 16 * 4) bytes per buffer.
+#: of the hierarchical rank. Unchunked, a (4, 8 MiB) batch would materialize
+#: a 16 GB one-hot; at 2^18 bytes the peak temp is ~(B * 2^21 * 16 * 4)
+#: bytes per buffer.
 STAGE1_CHUNK = 1 << 18
 
 
@@ -232,8 +227,7 @@ def decode_stage1(payload: jnp.ndarray, tables: dict):
     Chunked over byte positions with lax.map so the rank's one-hot
     temporaries stay bounded (see STAGE1_CHUNK); each chunk rebuilds its
     windows from a 4-byte-halo payload slice. Output stays in _windows32's
-    plane-major slot order. Separate compile unit from the chain stage (see
-    pack_stage1 for the XLA fusion compile-time pathology this avoids)."""
+    plane-major slot order. Separate compile unit from the chain stage."""
     b, p = payload.shape
     cj = min(STAGE1_CHUNK, p)
     n_chunks = p // cj
@@ -309,1228 +303,23 @@ def decode_stage2(ln: jnp.ndarray, sym: jnp.ndarray,
     return out.astype(jnp.uint8), underrun
 
 
-# ---------------------------------------------------------------------------
-# Stage 1 v2: Pallas rank kernel (codes <= 16 bits)
-# ---------------------------------------------------------------------------
-#
-# The XLA rank formulation above materializes its one-hot / fetched-row
-# temporaries in HBM (~6 KB of (B, N, 16) f32 traffic per payload byte —
-# measured 0.12 GB/s on v5e, pure bandwidth). This kernel runs the same
-# hierarchical rank with every temporary in VMEM. It exploits one extra
-# structural fact: for codes <= 16 bits the left-aligned values have all
-# information in their top 16 bits (prefix-freedom makes the 16-bit
-# prefixes distinct), so windows and thresholds shrink to u16 and every
-# fetched table value fits 8 bits — exact under the MXU's default-precision
-# bf16 multiplies, so the fetch matmul runs single-pass.
-
-#: rank kernel tile width in payload bytes
-RANK_TILE = 2048
-
-
-def rank_tables(tab: dict):
-    """decode_tables_batch dict -> (piv16 (B*16,) i32, ncodes (B,) i32,
-    ftab (B, 72, 16) f32) for the rank kernel. Codes must be <= 16 bits
-    (asserted: longer codes would be silently truncated to their top 16
-    bits and decode garbage). Rows 66-71 are zero padding: Mosaic requires
-    the block's sublane dim to be a multiple of 8."""
-    pc = np.asarray(tab["pc"])
-    b = pc.shape[0]
-    pc16 = (pc >> np.uint32(16)).astype(np.int64)  # (B, 256)
-    assert (pc & np.uint32(0xFFFF)).max(initial=0) == 0, \
-        "rank_tables requires all codes <= 16 bits"
-    rows2d = pc16.reshape(b, 16, 16)               # [b, group, j]
-    ftab = np.zeros((b, 72, 16), np.float32)
-    ftab[:, 0:16] = (rows2d >> 8).transpose(0, 2, 1)      # [b, j, group]
-    ftab[:, 16:32] = (rows2d & 0xFF).transpose(0, 2, 1)
-    ftab[:, 32:48] = np.asarray(tab["dlen2d"]).transpose(0, 2, 1)
-    ftab[:, 48:64] = np.asarray(tab["dsym2d"]).transpose(0, 2, 1)
-    ftab[:, 64] = np.asarray(tab["plen"])                 # <= 32
-    ftab[:, 65] = np.asarray(tab["psym"])                 # <= 255
-    piv16 = np.ascontiguousarray(pc16[:, ::16]).astype(np.int32).ravel()
-    return piv16, np.asarray(tab["n_codes"]).astype(np.int32), ftab
-
-
-@jax.jit
-def windows32_bytes(payload: jnp.ndarray) -> jnp.ndarray:
-    """(B, P) uint8 -> (B, P) i32: bytes j..j+3 big-endian (zero-padded)."""
-    by = payload.astype(jnp.uint32)
-
-    def sh(k):
-        return jnp.pad(by[:, k:], ((0, 0), (0, k)))
-
-    w = (by << 24) | (sh(1) << 16) | (sh(2) << 8) | sh(3)
-    return jax.lax.bitcast_convert_type(w, jnp.int32)
-
-
-def _rank_kernel(piv_ref, nc_ref, w_ref, ftab_ref,
-                 ls_out, st_ls, sem, *, t_lanes):
-    """Grid (B, n_tiles): (1, T) byte windows -> (8, T) i32 ls planes
-    (ls = sym | ln << 8).
-
-    Per bit offset s: 16-bit window -> coarse group via ONE (16, T)
-    broadcast compare against a pivot column (built from SMEM once per
-    tile) -> one (72, 16) x (16, T) fetch matmul (thresholds in 8-bit
-    halves, len/sym prefix deltas; one-hot = adjacent-row diff of the
-    pivot compare) -> in-group compare mask -> prefix-delta dot products.
-    Output planes land via manual DMA (see _stage2_kernel for why blocked
-    sub-tile output specs are unusable)."""
-    r = pl.program_id(0)
-    t_idx = pl.program_id(1)
-    n_tiles = pl.num_programs(1)
-    nc = nc_ref[r]
-    w32 = pltpu.bitcast(w_ref[...], jnp.uint32)  # (1, T)
-    tab = ftab_ref[0]                            # (72, 16) f32
-    i16sub = jax.lax.broadcasted_iota(jnp.int32, (16, t_lanes), 0)
-    rowg = jax.lax.broadcasted_iota(jnp.int32, (16, 1), 0)
-    pivcol = jnp.zeros((16, 1), jnp.int32)
-    for t in range(16):
-        pivcol = jnp.where(rowg == t, piv_ref[r * 16 + t], pivcol)
-    grp_ok = rowg * 16 < nc  # (16, 1)
-    for s in range(8):
-        w16 = pltpu.bitcast((w32 << s) >> 16, jnp.int32) & 0xFFFF
-        ge_piv = ((jnp.broadcast_to(w16, (16, t_lanes)) >= pivcol)
-                  & grp_ok).astype(jnp.float32)
-        # group one-hot = ge_piv[t] - ge_piv[t+1] (roll, not slice-concat:
-        # Mosaic rejects sublane concats of offset inputs); group = sum - 1
-        oh = ge_piv - jnp.where(i16sub < 15, pltpu.roll(ge_piv, 15, 0),
-                                jnp.zeros_like(ge_piv))
-        c1 = jnp.sum(ge_piv, axis=0, keepdims=True).astype(jnp.int32) - 1
-        c1 = jnp.maximum(c1, 0)
-        # default precision: every table value <= 255, exact in bf16
-        fetched = jax.lax.dot_general(
-            tab, oh, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)  # (72, T)
-        rows = fetched[0:16] * 256.0 + fetched[16:32]
-        gidx = c1 * 16 + i16sub
-        ge = ((jnp.broadcast_to(w16.astype(jnp.float32), (16, t_lanes))
-               >= rows) & (gidx < nc)).astype(jnp.float32)
-        ln = jnp.sum(ge * fetched[32:48], axis=0, keepdims=True) \
-            + fetched[64:65]
-        sym = jnp.sum(ge * fetched[48:64], axis=0, keepdims=True) \
-            + fetched[65:66]
-        st_ls[s:s + 1, :] = sym.astype(jnp.int32) \
-            | (ln.astype(jnp.int32) << 8)
-    off = (r * n_tiles + t_idx) * t_lanes
-    cp = pltpu.make_async_copy(st_ls, ls_out.at[:, pl.ds(off, t_lanes)],
-                               sem)
-    cp.start()
-    cp.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rank_planes_pallas(w32: jnp.ndarray, piv16: jnp.ndarray,
-                       ncodes: jnp.ndarray, ftab: jnp.ndarray,
-                       interpret: bool = False):
-    """(B, P) byte windows -> (8, B*P) i32 combined ls planes
-    (plane s, lane r*P + j; ls = sym | ln << 8) for the v4 FSM kernel."""
-    b, p = w32.shape
-    t = min(RANK_TILE, p)
-    n_tiles = p // t
-    kern = functools.partial(_rank_kernel, t_lanes=t)
-    w_flat = w32.reshape(1, b * p)  # (1, T) blocks need a 1-row array
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # piv16, ncodes
-        grid=(b, n_tiles),
-        in_specs=[
-            pl.BlockSpec((1, t), lambda r_, t_, *_: (0, r_ * n_tiles + t_)),
-            pl.BlockSpec((1, 72, 16), lambda r_, t_, *_: (r_, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[pltpu.VMEM((8, t), jnp.int32),
-                        pltpu.SemaphoreType.DMA(())],
-    )
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((8, b * p), jnp.int32),
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret,
-    )(piv16.astype(jnp.int32), ncodes.astype(jnp.int32), w_flat,
-      ftab.astype(jnp.float32))
-
-
-# ---------------------------------------------------------------------------
-# Stage 1 v3: Pallas rank kernel for 17-32-bit codes
-# ---------------------------------------------------------------------------
-#
-# Same hierarchical rank as the 16-bit kernel, on FULL 32-bit windows:
-# unsigned order is preserved through signed i32 compares by biasing both
-# sides with 0x80000000, and the in-group thresholds travel as FOUR byte
-# quarters through the one bf16-exact fetch matmul. Replaces the XLA
-# stage1 (0.12 GB/s, HBM-bound) for skewed tables, so one >16-bit block
-# decodes within the same order as the <=16-bit path instead of ~100x off.
-
-_BIAS = np.uint32(0x80000000)
-
-
-def rank_tables32(tab: dict):
-    """decode_tables_batch dict -> (piv32b (B*16,) i32 biased, ncodes,
-    ftab (B, 104, 16) f32) for the 32-bit rank kernel."""
-    pc = np.asarray(tab["pc"]).astype(np.uint32)   # (B, 256) left-aligned
-    b = pc.shape[0]
-    rows2d = pc.reshape(b, 16, 16)                 # [b, group, j]
-    ftab = np.zeros((b, 104, 16), np.float32)
-    for q in range(4):                             # byte quarters, MSB first
-        ftab[:, 16 * q:16 * (q + 1)] = \
-            ((rows2d >> np.uint32(24 - 8 * q)) & np.uint32(0xFF)) \
-            .transpose(0, 2, 1)
-    ftab[:, 64:80] = np.asarray(tab["dlen2d"]).transpose(0, 2, 1)
-    ftab[:, 80:96] = np.asarray(tab["dsym2d"]).transpose(0, 2, 1)
-    ftab[:, 96] = np.asarray(tab["plen"])
-    ftab[:, 97] = np.asarray(tab["psym"])
-    piv32b = (pc[:, ::16] ^ _BIAS).view(np.int32).copy().ravel()
-    return piv32b, np.asarray(tab["n_codes"]).astype(np.int32), ftab
-
-
-def _rank_kernel32(piv_ref, nc_ref, w_ref, wn_ref, ftab_ref,
-                   ln_out, sym_out, st_ln, st_sym, sem_a, sem_b, *, t_lanes):
-    """Grid (B, n_tiles): 32-bit windows -> (8, T) i8 len/sym planes."""
-    r = pl.program_id(0)
-    t_idx = pl.program_id(1)
-    n_tiles = pl.num_programs(1)
-    nc = nc_ref[r]
-    w32 = pltpu.bitcast(w_ref[...], jnp.uint32)   # (1, T) bytes j..j+3
-    w32n = pltpu.bitcast(wn_ref[...], jnp.uint32)  # bytes j+1..j+4
-    tab = ftab_ref[0]                              # (104, 16) f32
-    i16sub = jax.lax.broadcasted_iota(jnp.int32, (16, t_lanes), 0)
-    rowg = jax.lax.broadcasted_iota(jnp.int32, (16, 1), 0)
-    pivcol = jnp.zeros((16, 1), jnp.int32)
-    for t in range(16):
-        pivcol = jnp.where(rowg == t, piv_ref[r * 16 + t], pivcol)
-    grp_ok = rowg * 16 < nc
-
-    def f8u(z):
-        return pltpu.bitcast(z.astype(jnp.int32), jnp.uint32)
-
-    for s in range(8):
-        if s == 0:
-            w = w32
-        else:
-            w = (w32 << s) | ((w32n >> (31 - s)) >> 1)
-        wb = pltpu.bitcast(w ^ jnp.uint32(0x80000000), jnp.int32)  # biased
-        ge_piv = ((jnp.broadcast_to(wb, (16, t_lanes)) >= pivcol)
-                  & grp_ok).astype(jnp.float32)
-        oh = ge_piv - jnp.where(i16sub < 15, pltpu.roll(ge_piv, 15, 0),
-                                jnp.zeros_like(ge_piv))
-        c1 = jnp.sum(ge_piv, axis=0, keepdims=True).astype(jnp.int32) - 1
-        c1 = jnp.maximum(c1, 0)
-        fetched = jax.lax.dot_general(
-            tab, oh, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)    # (104, T)
-        rows = (f8u(fetched[0:16]) << 24) | (f8u(fetched[16:32]) << 16) \
-            | (f8u(fetched[32:48]) << 8) | f8u(fetched[48:64])
-        rows_b = pltpu.bitcast(rows ^ jnp.uint32(0x80000000), jnp.int32)
-        gidx = c1 * 16 + i16sub
-        ge = ((jnp.broadcast_to(wb, (16, t_lanes)) >= rows_b)
-              & (gidx < nc)).astype(jnp.float32)
-        ln = jnp.sum(ge * fetched[64:80], axis=0, keepdims=True) \
-            + fetched[96:97]
-        sym = jnp.sum(ge * fetched[80:96], axis=0, keepdims=True) \
-            + fetched[97:98]
-        st_ln[s:s + 1, :] = ln.astype(jnp.int32).astype(jnp.int8)
-        st_sym[s:s + 1, :] = sym.astype(jnp.int32).astype(jnp.int8)
-    off = (r * n_tiles + t_idx) * t_lanes
-    cp_a = pltpu.make_async_copy(st_ln, ln_out.at[:, pl.ds(off, t_lanes)],
-                                 sem_a)
-    cp_b = pltpu.make_async_copy(st_sym, sym_out.at[:, pl.ds(off, t_lanes)],
-                                 sem_b)
-    cp_a.start()
-    cp_b.start()
-    cp_a.wait()
-    cp_b.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rank_planes32_pallas(w32: jnp.ndarray, w32n: jnp.ndarray,
-                         piv32b: jnp.ndarray, ncodes: jnp.ndarray,
-                         ftab: jnp.ndarray, interpret: bool = False):
-    """(B, P) 32-bit windows (+ next-byte windows) -> ((8, B*P) i8 len,
-    (8, B*P) i8 sym) planes for the v3 FSM chain at s_states=32."""
-    b, p = w32.shape
-    t = min(RANK_TILE, p)
-    n_tiles = p // t
-    kern = functools.partial(_rank_kernel32, t_lanes=t)
-    flat = pl.BlockSpec((1, t), lambda r_, t_, *_: (0, r_ * n_tiles + t_))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # piv32b, ncodes
-        grid=(b, n_tiles),
-        in_specs=[
-            flat, flat,
-            pl.BlockSpec((1, 104, 16), lambda r_, t_, *_: (r_, 0, 0)),
-        ],
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                   pl.BlockSpec(memory_space=pl.ANY)],
-        scratch_shapes=[pltpu.VMEM((8, t), jnp.int8),
-                        pltpu.VMEM((8, t), jnp.int8),
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SemaphoreType.DMA(())],
-    )
-    shp = jax.ShapeDtypeStruct((8, b * p), jnp.int8)
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[shp, shp],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret,
-    )(piv32b.astype(jnp.int32), ncodes.astype(jnp.int32),
-      w32.reshape(1, b * p), w32n.reshape(1, b * p), ftab.astype(jnp.float32))
-
-
-@functools.partial(jax.jit, static_argnames=("stride_words", "interpret"))
-def _decode_fused32_tpu(payload, payload_lens, piv32b, ncodes, ftab,
-                        out_counts, stride_words, interpret: bool = False):
-    """All-Pallas decode for 17-32-bit codes: 32-bit rank kernel -> v3 FSM
-    chain (S=32) -> Pallas emission."""
-    b, p = payload.shape
-    w32 = windows32_bytes(payload)
-    w32n = jnp.pad(w32[:, 1:], ((0, 0), (0, 1)))
-    ln8, sym8 = rank_planes32_pallas(w32, w32n, piv32b, ncodes, ftab,
-                                     interpret=interpret)
-    val1, val2, len1, len2, underrun = _stage2_chain_planes(
-        ln8, sym8, b, p, payload_lens, out_counts, 32, interpret)
-    rows = _emit_packs(val1, val2, len1, len2, payload_lens, stride_words,
-                       interpret)
-    return rows, underrun
-
-
-# ---------------------------------------------------------------------------
-# Stage 2 v3: in-kernel FSM + replay (Pallas) + Pallas emission
-# ---------------------------------------------------------------------------
-#
-# The pointer-doubling stage2 above runs on XLA gathers, which serialize on
-# real TPU (~35 Melem/s measured on v5e — 45 s for a (2, 8 MiB) batch).
-# An XLA FSM formulation (per-byte transition tables + associative_scan)
-# replaced it in round 3, but measured catastrophically on-chip: building
-# the (S, B, P) transition tables alone ran at ~3 MB/s (375 s for a
-# (8, 8 MiB) batch — XLA lowers the unrolled int8 select chains poorly),
-# and the symbol-replay graph OOM-killed the TPU compiler. Stage 2 v3 puts
-# the whole chain INSIDE a Mosaic kernel where the working set lives in
-# VMEM and the select chains vectorize as written:
-#
-#   * the bit chain is a finite-state machine over BYTES: the state before
-#     byte j is "bits until the next symbol boundary" in [0, S);
-#   * per byte, its transition function is "shift-or-exit": states s >= 8
-#     map to s - 8; states s < 8 exit through an 8-entry table E[b] (the
-#     chain from bit b to the byte end) built by a short backward
-#     recurrence over the 8 in-byte bit positions;
-#   * a Hillis-Steele composition scan over the tile's lanes (pltpu.roll
-#     by 1,2,4,... + S-way select per round) yields every byte's prefix
-#     function; applying the row's carried entry state (SMEM) gives the
-#     entry state of every byte in one more select pass;
-#   * replay: entry state -> up to 8 ordered boundary symbols (8 unrolled
-#     rounds over the bit planes), clipped by the running output count
-#     (carried in SMEM) and packed into two <=32-bit lanes per byte;
-#   * the Pallas emission kernel (emit_pallas.emit_bits_rows) concatenates
-#     the per-byte symbol packs into the decoded rows — termination by
-#     known output count (d.c:530).
-
-#: stage2 kernel tile width in payload bytes
-S2_TILE = 2048
-
-
-def _stage2_kernel(plen_ref, cnt_ref, ln_ref, sym_ref,
-                   out_ref, under_ref, stage, ustage, sem, usem, smem,
-                   *, s_states, t_lanes):
-    """Grid (B, n_tiles). smem: [0]=entry state, [1]=emitted symbol count.
-
-    Outputs go through manual DMA from VMEM staging (stage (4, T): rows
-    val1, val2, len1, len2; ustage (1, 128): underrun flag row): blocked (1, T)
-    output specs over (1, B*P) arrays force a sub-tile read-modify-write of
-    the (8, 128)-tiled destination on EVERY grid step — measured ~5.6 ms
-    per step on v5e (the whole kernel ran at 0.1 MB/s); the manual-DMA
-    variant of the same trivial kernel measured ~1.8 us/step."""
-    r = pl.program_id(0)
-    t_idx = pl.program_id(1)
-    plen = plen_ref[r]
-    cnt = cnt_ref[r]
-    n_tiles = pl.num_programs(1)
-    last_tile = jnp.maximum((plen + t_lanes - 1) // t_lanes - 1, 0)
-
-    @pl.when(t_idx == 0)
-    def _init():
-        smem[0] = 0
-        smem[1] = 0
-
-    # Tiles past the row's data are skipped entirely: their out region is
-    # never written, and every consumer masks lanes by row length.
-    @pl.when(t_idx <= last_tile)
-    def _body():
-        # Clip to s_states INCLUSIVE: a code of exactly s_states bits is
-        # legal (max_len == s_states picks this kernel) and its E-table
-        # states still fit [0, s_states-1] (max e = 7 + s_states - 8).
-        # Clipping to s_states-1 corrupted all-8-bit tables at s_states=8.
-        lnp = jnp.clip(ln_ref[...].astype(jnp.int32), 1, s_states)
-        symp = sym_ref[...].astype(jnp.int32) & 255  # (8, T)
-
-        # E[b] = state at byte end for a boundary at bit b (backward chain)
-        E = [None] * 8
-        for bit in range(7, -1, -1):
-            nb = bit + lnp[bit:bit + 1, :]
-            e = nb - 8
-            for c in range(bit + 1, 8):
-                e = jnp.where(nb == c, E[c], e)
-            E[bit] = jnp.clip(e, 0, s_states - 1)
-
-        # F0: per-byte function as a full S-vector (rows s>=8: s-8 const)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (s_states, t_lanes), 1)
-        consts = [jnp.full((1, t_lanes), s - 8, jnp.int32)
-                  for s in range(8, s_states)]
-        F = jnp.concatenate(E + consts, axis=0)  # (S, T)
-
-        # Hillis-Steele inclusive composition scan over lanes. fori_loop
-        # with a dynamic roll shift keeps the MLIR to ONE unrolled 16-way
-        # select: the fully unrolled form (rounds x s_states selects on
-        # (S, T) values) OOM-killed the Mosaic compiler at t_lanes=2048.
-        def scan_round(i, F):
-            k = jnp.int32(1) << i
-            Fr = pltpu.roll(F, k, 1)  # F_{j-k} into lane j
-            sel = jnp.zeros_like(F)
-            for t in range(s_states):
-                sel = jnp.where(Fr == t,
-                                jnp.broadcast_to(F[t:t + 1, :],
-                                                 (s_states, t_lanes)), sel)
-            return jnp.where(lane >= k, sel, F)
-
-        F = jax.lax.fori_loop(0, (t_lanes - 1).bit_length(), scan_round, F)
-
-        # orbit of the carried entry state
-        q0 = smem[0]
-        ap = jnp.zeros((1, t_lanes), jnp.int32)
-        for t in range(s_states):
-            ap = jnp.where(q0 == t, F[t:t + 1, :], ap)
-        lane1 = lane[0:1, :]
-        entry = pltpu.roll(ap, 1, 1)
-        entry = jnp.where(lane1 == 0, q0, entry)
-        smem[0] = jnp.sum(jnp.where(lane1 == t_lanes - 1, ap, 0))
-
-        # replay: entry state -> ordered boundary symbols of the byte
-        q = entry
-        syms = []
-        for _ in range(8):
-            is_b = q < 8
-            s_at = jnp.zeros_like(q)
-            l_at = jnp.ones_like(q)
-            for kk in range(8):
-                hit = q == kk
-                s_at = jnp.where(hit, symp[kk:kk + 1, :], s_at)
-                l_at = jnp.where(hit, lnp[kk:kk + 1, :], l_at)
-            syms.append((is_b, s_at))
-            q = jnp.where(is_b, q + l_at, q)
-        nb = sum(m.astype(jnp.int32) for m, _ in syms)
-
-        # output-count clip with the carried cumulative symbol count
-        gpos = t_idx * t_lanes + lane1
-        nb = jnp.where(gpos < plen, nb, 0)
-        cum = smem[1] + _cumsum_1d(nb)
-        before = cum - nb
-        allowed = jnp.clip(cnt - before, 0, nb)
-        smem[1] = jnp.sum(jnp.where(lane1 == t_lanes - 1, cum, 0))
-
-        def pack4(base):
-            val = jnp.zeros((1, t_lanes), jnp.uint32)
-            for i in range(4):
-                if base + i < 8:
-                    _, s_at = syms[base + i]
-                    val = val | (pltpu.bitcast(s_at, jnp.uint32)
-                                 << (24 - 8 * i))
-            n = jnp.clip(allowed - base, 0, 4)
-            bits = 8 * n
-            mask = jnp.where(
-                n > 0, (~jnp.uint32(0)) << pltpu.bitcast(
-                    32 - bits, jnp.uint32), jnp.uint32(0))
-            return pltpu.bitcast(val & mask, jnp.int32), bits
-
-        v1, l1 = pack4(0)
-        v2, l2 = pack4(4)
-        stage[0:1, :] = v1
-        stage[1:2, :] = v2
-        stage[2:3, :] = l1
-        stage[3:4, :] = l2
-        cp = pltpu.make_async_copy(
-            stage, out_ref.at[:, pl.ds((r * n_tiles + t_idx) * t_lanes,
-                                       t_lanes)], sem)
-        cp.start()
-        cp.wait()
-
-        @pl.when(t_idx == last_tile)
-        def _final():
-            # one 512 B row per block row: a lane-sized (4 B) DMA is below
-            # Mosaic's transfer granularity
-            total = jnp.sum(jnp.where(lane1 == t_lanes - 1, cum, 0))
-            ustage[...] = jnp.broadcast_to(
-                (total < cnt).astype(jnp.int32).reshape(1, 1), (1, 128))
-            ucp = pltpu.make_async_copy(
-                ustage, under_ref.at[:, pl.ds(r * 128, 128)], usem)
-            ucp.start()
-            ucp.wait()
-
-
-def _cumsum_1d(x):
-    """Inclusive log-shift cumsum along lanes of a (1, T) int32 array."""
-    n = x.shape[-1]
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    acc = x
-    s = 1
-    while s < n:
-        acc = acc + jnp.where(lane >= s, pltpu.roll(acc, s, 1),
-                              jnp.zeros_like(acc))
-        s *= 2
-    return acc
-
-
-@functools.partial(jax.jit, static_argnames=("s_states", "interpret"))
-def _stage2_chain_pallas(ln: jnp.ndarray, sym: jnp.ndarray,
-                         payload_lens: jnp.ndarray, out_counts: jnp.ndarray,
-                         s_states: int, interpret: bool = False):
-    """Pallas FSM+replay: per-byte symbol packs (val1, val2, len1, len2)
-    each (B, P) int32, plus the underrun flag (B,) bool."""
-    b, nslots = ln.shape
-    p = nslots // 8
-    # plane-major (B, 8P) -> (8, B*P) int8: each tile loads one (8, T)
-    # block per array (sublane dim 8 satisfies Mosaic's block rules; i8
-    # halves the kernel's input traffic)
-    ln8 = ln.reshape(b, 8, p).transpose(1, 0, 2).astype(jnp.int8) \
-        .reshape(8, b * p)
-    sym8 = sym.reshape(b, 8, p).transpose(1, 0, 2).astype(jnp.int8) \
-        .reshape(8, b * p)
-    return _stage2_chain_planes(ln8, sym8, b, p, payload_lens, out_counts,
-                                s_states, interpret)
-
-
-def _stage2_chain_planes(ln8, sym8, b, p, payload_lens, out_counts,
-                         s_states, interpret=False):
-    """_stage2_chain_pallas core on prebuilt (8, B*P) i8 planes (the rank
-    kernel emits this layout directly — no XLA transpose)."""
-    t = min(S2_TILE, p)
-    n_tiles = p // t
-    kern = functools.partial(_stage2_kernel, s_states=s_states, t_lanes=t)
-    plane = pl.BlockSpec((8, t), lambda r_, t_, *_: (0, r_ * n_tiles + t_))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # payload_lens, out_counts
-        grid=(b, n_tiles),
-        in_specs=[plane, plane],
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                   pl.BlockSpec(memory_space=pl.ANY)],
-        scratch_shapes=[pltpu.VMEM((4, t), jnp.int32),
-                        pltpu.VMEM((1, 128), jnp.int32),
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SMEM((2,), jnp.int32)],
-    )
-    packs, under = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((4, b * p), jnp.int32),
-                   jax.ShapeDtypeStruct((1, b * 128), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret,
-    )(payload_lens.astype(jnp.int32), out_counts.astype(jnp.int32),
-      ln8, sym8)
-    return (packs[0].reshape(b, p), packs[1].reshape(b, p),
-            packs[2].reshape(b, p), packs[3].reshape(b, p),
-            under[0, ::128] > 0)
-
-
-# ---------------------------------------------------------------------------
-# Stage 2 v4: dense-layout packed-nibble FSM (codes <= 16 bits)
-# ---------------------------------------------------------------------------
-#
-# v3 above runs its scan on (1, T)/(S, T) arrays whose per-byte work is one
-# LANE of a vreg: a (1, 2048) op occupies 16 vregs at 12.5% density, and the
-# S-way select composition costs ~16 selects on (16, T) values per round —
-# measured 146.5 MB/s. v4 changes both terms:
-#
-#   * DENSE LAYOUT: the tile's bytes live as an (8, TL) block (row r = bytes
-#     [r*TL, (r+1)*TL)), so every elementwise op runs at full sublane
-#     density. The scan becomes two-level: a lane scan per row (all 8 rows
-#     in parallel) + a 3-round stitch over the 8 row totals.
-#   * PACKED FUNCTIONS: a byte's FSM transition function (S <= 16 states,
-#     values < 16) packs into nibbles of two u32 words (states 0-7 / 8-15).
-#     Composition C[s] = B[A[s]] is 16 variable-shift extracts instead of
-#     16 S-wide selects — ~6x fewer VPU ops per compose.
-#
-# Input is the rank kernel's combined plane array ls (8, B*P) int32
-# (sym | ln << 8), viewed as (8, M, TL); outputs land as (4*M, TL) rows.
-
-#: dense tile lane width; a tile covers 8*S2_LANES bytes
-S2_LANES = 256
-
-#: packed identity function (state s -> s) for the row-stitch scan
-_ID_LO = 0x76543210
-_ID_HI = 0xFEDCBA98  # states 8..15 -> 8..15 (nibble values 8..15)
-
-
-def _u32(x):
-    return pltpu.bitcast(x, jnp.uint32)
-
-
-def _i32(x):
-    return pltpu.bitcast(x, jnp.int32)
-
-
-def _fsm_compose(alo, ahi, blo, bhi, s_states):
-    """C = B after A: C[s] = B[A[s]], all packed u32 nibble vectors."""
-    out_lo = jnp.zeros_like(blo)
-    out_hi = jnp.zeros_like(blo) if s_states > 8 else None
-    for s in range(s_states):
-        src = alo if s < 8 else ahi
-        a = (src >> jnp.uint32(4 * (s % 8))) & jnp.uint32(15)
-        sh = (a & jnp.uint32(7)) << jnp.uint32(2)
-        vlo = (blo >> sh) & jnp.uint32(15)
-        if s_states > 8:
-            vhi = (bhi >> sh) & jnp.uint32(15)
-            v = jnp.where(a < jnp.uint32(8), vlo, vhi)
-        else:
-            v = vlo
-        if s < 8:
-            out_lo = out_lo | (v << jnp.uint32(4 * s))
-        else:
-            out_hi = out_hi | (v << jnp.uint32(4 * (s % 8)))
-    return out_lo, out_hi
-
-
-def _fsm_eval(flo, fhi, q, s_states):
-    """Packed function applied to state q (i32 array or scalar) -> i32."""
-    qu = _u32(q) if not isinstance(q, int) else jnp.uint32(q)
-    sh = (qu & jnp.uint32(7)) << jnp.uint32(2)
-    vlo = (flo >> sh) & jnp.uint32(15)
-    if s_states > 8:
-        vhi = (fhi >> sh) & jnp.uint32(15)
-        return _i32(jnp.where(qu < jnp.uint32(8), vlo, vhi))
-    return _i32(vlo)
-
-
-def _cumsum_dense(x, tl):
-    """Row-major inclusive cumsum of an (8, tl) int32 block."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (8, tl), 1)
-    acc = x
-    k = 1
-    while k < tl:
-        acc = acc + jnp.where(lane >= k, pltpu.roll(acc, k, 1),
-                              jnp.zeros_like(acc))
-        k *= 2
-    tot = acc[:, tl - 1:tl]  # (8, 1) row totals
-    return acc + _row_prefix_sum(tot)
-
-
-def _row_prefix_sum(tot):
-    """(8, 1) int32 -> (8, 1) EXCLUSIVE prefix sum over rows.
-
-    Sublane rolls + masks, NOT concat-of-slices: Mosaic rejects sublane
-    concats whose inputs carry internal offsets ("result/input offset
-    mismatch on non-concat dimension")."""
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-    acc = tot
-    for k in (1, 2, 4):
-        acc = acc + jnp.where(rowi >= k, pltpu.roll(acc, k, 0),
-                              jnp.zeros_like(acc))
-    return jnp.where(rowi >= 1, pltpu.roll(acc, 1, 0), jnp.zeros_like(acc))
-
-
-def _stage2_kernel_v4(plen_ref, cnt_ref, ls_ref,
-                      out_ref, under_ref, stage, ustage, sems, usem, smem,
-                      *, s_states, tl, m_rows):
-    """Grid (B, n_tiles); ls_ref (8, 8, tl) i32 block (dim0 = bit offset).
-
-    smem: [0]=entry state, [1]=emitted symbol count. Outputs: 4 manual DMAs
-    of (8, tl) staging rows into out_ref (4*M, tl) — val1 rows [0, M),
-    val2 [M, 2M), len1, len2; under_ref (1, B*128) as in v3."""
-    r = pl.program_id(0)
-    t_idx = pl.program_id(1)
-    n_tiles = pl.num_programs(1)
-    plen = plen_ref[r]
-    cnt = cnt_ref[r]
-    tile_bytes = 8 * tl
-    last_tile = jnp.maximum((plen + tile_bytes - 1) // tile_bytes - 1, 0)
-
-    @pl.when(t_idx == 0)
-    def _init():
-        smem[0] = 0
-        smem[1] = 0
-
-    @pl.when(t_idx <= last_tile)
-    def _body():
-        lnp = []
-        symp = []
-        for kk in range(8):
-            ls = ls_ref[kk]  # (8, tl) i32
-            lnp.append(jnp.clip((ls >> 8) & 31, 1, s_states))
-            symp.append(ls & 255)
-
-        # E[b] = state at byte end for a boundary at bit b (backward chain)
-        E = [None] * 8
-        for bit in range(7, -1, -1):
-            nb = bit + lnp[bit]
-            e = nb - 8
-            for c in range(bit + 1, 8):
-                e = jnp.where(nb == c, E[c], e)
-            E[bit] = jnp.clip(e, 0, s_states - 1)
-
-        # pack the byte function: states 0-7 from E, 8..15 -> s-8 constant
-        flo = jnp.zeros((8, tl), jnp.uint32)
-        for s in range(8):
-            flo = flo | (_u32(E[s]) << jnp.uint32(4 * s))
-        fhi = jnp.full((8, tl), jnp.uint32(_ID_LO))  # states 8+k -> k
-
-        # per-row lane composition scan (all 8 rows in parallel)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (8, tl), 1)
-        k = 1
-        while k < tl:
-            arl = pltpu.roll(flo, k, 1)
-            arh = pltpu.roll(fhi, k, 1) if s_states > 8 else None
-            clo, chi = _fsm_compose(arl, arh, flo, fhi, s_states)
-            keep = lane >= k
-            flo = jnp.where(keep, clo, flo)
-            if s_states > 8:
-                fhi = jnp.where(keep, chi, fhi)
-            k *= 2
-
-        # stitch across rows: exclusive prefix of row totals, then apply.
-        # Sublane shifts are roll+identity-fill (see _row_prefix_sum).
-        hi16 = s_states > 8
-        rowc = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-
-        def shift_id(x, k, word):
-            return jnp.where(rowc >= k, pltpu.roll(x, k, 0),
-                             jnp.full((8, 1), jnp.uint32(word)))
-
-        plo = flo[:, tl - 1:tl]
-        phi = fhi[:, tl - 1:tl] if hi16 else None
-        for k in (1, 2, 4):
-            shl = shift_id(plo, k, _ID_LO)
-            shh = shift_id(phi, k, _ID_HI) if hi16 else None
-            plo, phi = _fsm_compose(shl, shh, plo, phi, s_states)
-        pexl = jnp.broadcast_to(shift_id(plo, 1, _ID_LO), (8, tl))
-        pexh = jnp.broadcast_to(shift_id(phi, 1, _ID_HI), (8, tl)) \
-            if hi16 else None
-        flo, fhi = _fsm_compose(pexl, pexh, flo, fhi, s_states)
-        if not hi16:
-            fhi = None
-
-        # orbit of the carried entry state; shift to per-byte ENTRY states
-        q0 = smem[0]
-        ap = _fsm_eval(flo, fhi, q0 + jnp.zeros((8, tl), jnp.int32),
-                       s_states)
-        rowi = jax.lax.broadcasted_iota(jnp.int32, (8, tl), 0)
-        lastcol = ap[:, tl - 1:tl]
-        prev_last = jnp.where(rowc >= 1, pltpu.roll(lastcol, 1, 0),
-                              jnp.zeros_like(lastcol))
-        ent = pltpu.roll(ap, 1, 1)
-        ent = jnp.where(lane == 0, jnp.broadcast_to(prev_last, (8, tl)), ent)
-        ent = jnp.where((lane == 0) & (rowi == 0), q0, ent)
-        smem[0] = jnp.sum(jnp.where((rowi == 7) & (lane == tl - 1), ap, 0))
-
-        # replay: entry state -> ordered boundary symbols of the byte
-        q = ent
-        syms = []
-        for _ in range(8):
-            is_b = q < 8
-            s_at = jnp.zeros_like(q)
-            l_at = jnp.ones_like(q)
-            for kk in range(8):
-                hit = q == kk
-                s_at = jnp.where(hit, symp[kk], s_at)
-                l_at = jnp.where(hit, lnp[kk], l_at)
-            syms.append((is_b, s_at))
-            q = jnp.where(is_b, q + l_at, q)
-        nb = sum(m.astype(jnp.int32) for m, _ in syms)
-
-        # output-count clip with the carried cumulative symbol count
-        gpos = t_idx * tile_bytes + rowi * tl + lane
-        nb = jnp.where(gpos < plen, nb, 0)
-        cum = smem[1] + _cumsum_dense(nb, tl)
-        before = cum - nb
-        allowed = jnp.clip(cnt - before, 0, nb)
-        total_cum = jnp.sum(jnp.where((rowi == 7) & (lane == tl - 1), cum, 0))
-        smem[1] = total_cum
-
-        def pack4(base):
-            val = jnp.zeros((8, tl), jnp.uint32)
-            for i in range(4):
-                if base + i < 8:
-                    _, s_at = syms[base + i]
-                    val = val | (_u32(s_at) << jnp.uint32(24 - 8 * i))
-            n = jnp.clip(allowed - base, 0, 4)
-            bits = 8 * n
-            mask = jnp.where(
-                n > 0, (~jnp.uint32(0)) << _u32(32 - bits), jnp.uint32(0))
-            return _i32(val & mask), bits
-
-        v1, l1 = pack4(0)
-        v2, l2 = pack4(4)
-        stage[0:8, :] = v1
-        stage[8:16, :] = v2
-        stage[16:24, :] = l1
-        stage[24:32, :] = l2
-        m0 = (r * n_tiles + t_idx) * 8
-        cps = []
-        for qi in range(4):
-            cp = pltpu.make_async_copy(
-                stage.at[pl.ds(qi * 8, 8), :],
-                out_ref.at[pl.ds(qi * m_rows + m0, 8), :], sems[qi])
-            cp.start()
-            cps.append(cp)
-        for cp in cps:
-            cp.wait()
-
-        @pl.when(t_idx == last_tile)
-        def _final():
-            ustage[...] = jnp.broadcast_to(
-                (total_cum < cnt).astype(jnp.int32).reshape(1, 1), (1, 128))
-            ucp = pltpu.make_async_copy(
-                ustage, under_ref.at[:, pl.ds(r * 128, 128)], usem)
-            ucp.start()
-            ucp.wait()
-
-
-# --- v5: v4 + in-kernel byte emission ---------------------------------------
-#
-# v4 materializes per-byte symbol packs (val1/val2/len1/len2 — 16 B of HBM
-# per payload byte) and concatenates them through the general bit-level
-# emit kernel: measured ~85 ms of the ~95 ms chain at (2, 8 MiB). But the
-# decode output is BYTE-aligned and the FSM kernel already computes every
-# byte's output offset (the count cumsum), so v5 places the <= 8 decoded
-# bytes of each payload byte directly into a 4-page VMEM accumulator
-# (little-endian in-word, so the flat u32 buffer's u8 view is the stream)
-# and page-flushes to the row's region — one kernel, no intermediates.
-
-#: flush unit of the in-kernel decode emission, in u32 words (8 KiB)
-D_PAGE = 2048
-
-
-def _place_chunk(w0, w1, w2, wq, base_k, s_lanes):
-    """One sub-chunk's (1, s) word contributions -> (1, reg2) window at
-    base_k. wq monotone; word k gets byte-quarter sums via one bf16-exact
-    matmul; w1/w2 land one/two words later (post-matmul rolls)."""
-    ws = 2 * s_lanes + 3
-    reg2 = (ws + 127 + 127) & ~127
-
-    def u8f(z):
-        return pltpu.bitcast(z, jnp.int32).astype(jnp.float32)
-
-    def f8u(z):
-        return pltpu.bitcast(z.astype(jnp.int32), jnp.uint32)
-
-    wqv = jax.lax.broadcasted_iota(jnp.int32, (ws, s_lanes), 0)
-    cmp = (jnp.broadcast_to(wq - base_k, (ws, s_lanes)) == wqv) \
-        .astype(jnp.float32)
-    halves = jnp.concatenate(
-        [u8f(w & jnp.uint32(0xFF)) for w in (w0, w1, w2)]
-        + [u8f((w >> 8) & jnp.uint32(0xFF)) for w in (w0, w1, w2)]
-        + [u8f((w >> 16) & jnp.uint32(0xFF)) for w in (w0, w1, w2)]
-        + [u8f(w >> 24) for w in (w0, w1, w2)], axis=0)  # (12, s)
-    placed = jax.lax.dot_general(
-        halves, cmp, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)              # (12, ws)
-
-    def word(i):  # little-endian reassembly of contribution word i
-        return (f8u(placed[i:i + 1]) | (f8u(placed[3 + i:4 + i]) << 8)
-                | (f8u(placed[6 + i:7 + i]) << 16)
-                | (f8u(placed[9 + i:10 + i]) << 24))
-
-    wl = jax.lax.broadcasted_iota(jnp.int32, (1, ws), 1)
-    p0 = word(0)
-    p1 = jnp.where(wl >= 1, pltpu.roll(word(1), 1, 1), jnp.uint32(0))
-    p2 = jnp.where(wl >= 2, pltpu.roll(word(2), 2, 1), jnp.uint32(0))
-    merged = pltpu.bitcast(p0 | p1 | p2, jnp.int32)
-    lanes_reg = jax.lax.broadcasted_iota(jnp.int32, (1, reg2), 1)
-    wpad = jnp.concatenate(
-        [merged, jnp.zeros((1, reg2 - ws), jnp.int32)], axis=1)
-    return wpad, lanes_reg, reg2
-
-
-def _stage2_kernel_v5(plen_ref, cnt_ref, ls_ref,
-                      out_ref, under_ref, pagebuf, ustage, sem, usem, smem,
-                      *, s_states, tl, stride_words):
-    """v4's FSM + replay + in-kernel byte emission (see block comment).
-
-    smem: [0]=entry state, [1]=cum symbol count, [2]=flushed pages.
-    out_ref (1, B*stride_words + 4*D_PAGE) i32: row r's decoded bytes are
-    the u8 view of words [r*stride_words, ...)."""
-    r = pl.program_id(0)
-    t_idx = pl.program_id(1)
-    n_tiles = pl.num_programs(1)
-    plen = plen_ref[r]
-    cnt = cnt_ref[r]
-    tile_bytes = 8 * tl
-    last_tile = jnp.maximum((plen + tile_bytes - 1) // tile_bytes - 1, 0)
-    woff = pl.multiple_of(r * stride_words, 128)
-
-    @pl.when(t_idx == 0)
-    def _init():
-        smem[0] = 0
-        smem[1] = 0
-        smem[2] = 0
-        pagebuf[...] = jnp.zeros((1, 4 * D_PAGE), jnp.int32)
-
-    @pl.when(t_idx <= last_tile)
-    def _body():
-        lnp = []
-        symp = []
-        for kk in range(8):
-            ls = ls_ref[kk]  # (8, tl) i32
-            lnp.append(jnp.clip((ls >> 8) & 31, 1, s_states))
-            symp.append(ls & 255)
-
-        E = [None] * 8
-        for bit in range(7, -1, -1):
-            nb_ = bit + lnp[bit]
-            e = nb_ - 8
-            for c in range(bit + 1, 8):
-                e = jnp.where(nb_ == c, E[c], e)
-            E[bit] = jnp.clip(e, 0, s_states - 1)
-
-        flo = jnp.zeros((8, tl), jnp.uint32)
-        for s in range(8):
-            flo = flo | (_u32(E[s]) << jnp.uint32(4 * s))
-        fhi = jnp.full((8, tl), jnp.uint32(_ID_LO))
-
-        lane = jax.lax.broadcasted_iota(jnp.int32, (8, tl), 1)
-        k = 1
-        while k < tl:
-            arl = pltpu.roll(flo, k, 1)
-            arh = pltpu.roll(fhi, k, 1) if s_states > 8 else None
-            clo, chi = _fsm_compose(arl, arh, flo, fhi, s_states)
-            keep = lane >= k
-            flo = jnp.where(keep, clo, flo)
-            if s_states > 8:
-                fhi = jnp.where(keep, chi, fhi)
-            k *= 2
-
-        hi16 = s_states > 8
-        rowc = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-
-        def shift_id(x, k, word):
-            return jnp.where(rowc >= k, pltpu.roll(x, k, 0),
-                             jnp.full((8, 1), jnp.uint32(word)))
-
-        plo = flo[:, tl - 1:tl]
-        phi = fhi[:, tl - 1:tl] if hi16 else None
-        for k in (1, 2, 4):
-            shl = shift_id(plo, k, _ID_LO)
-            shh = shift_id(phi, k, _ID_HI) if hi16 else None
-            plo, phi = _fsm_compose(shl, shh, plo, phi, s_states)
-        pexl = jnp.broadcast_to(shift_id(plo, 1, _ID_LO), (8, tl))
-        pexh = jnp.broadcast_to(shift_id(phi, 1, _ID_HI), (8, tl)) \
-            if hi16 else None
-        flo, fhi = _fsm_compose(pexl, pexh, flo, fhi, s_states)
-        if not hi16:
-            fhi = None
-
-        q0 = smem[0]
-        ap = _fsm_eval(flo, fhi, q0 + jnp.zeros((8, tl), jnp.int32),
-                       s_states)
-        rowi = jax.lax.broadcasted_iota(jnp.int32, (8, tl), 0)
-        lastcol = ap[:, tl - 1:tl]
-        prev_last = jnp.where(rowc >= 1, pltpu.roll(lastcol, 1, 0),
-                              jnp.zeros_like(lastcol))
-        ent = pltpu.roll(ap, 1, 1)
-        ent = jnp.where(lane == 0, jnp.broadcast_to(prev_last, (8, tl)), ent)
-        ent = jnp.where((lane == 0) & (rowi == 0), q0, ent)
-        smem[0] = jnp.sum(jnp.where((rowi == 7) & (lane == tl - 1), ap, 0))
-
-        q = ent
-        syms = []
-        for _ in range(8):
-            is_b = q < 8
-            s_at = jnp.zeros_like(q)
-            l_at = jnp.ones_like(q)
-            for kk in range(8):
-                hit = q == kk
-                s_at = jnp.where(hit, symp[kk], s_at)
-                l_at = jnp.where(hit, lnp[kk], l_at)
-            syms.append((is_b, s_at))
-            q = jnp.where(is_b, q + l_at, q)
-        nb = sum(m.astype(jnp.int32) for m, _ in syms)
-
-        gpos = t_idx * tile_bytes + rowi * tl + lane
-        nb = jnp.where(gpos < plen, nb, 0)
-        cum = smem[1] + _cumsum_dense(nb, tl)
-        before = cum - nb
-        allowed = jnp.clip(cnt - before, 0, nb)
-        total_cum = jnp.sum(jnp.where((rowi == 7) & (lane == tl - 1), cum, 0))
-        smem[1] = total_cum
-
-        # little-endian symbol packs, masked to the allowed count
-        def pack4le(base):
-            val = jnp.zeros((8, tl), jnp.uint32)
-            for i in range(4):
-                if base + i < 8:
-                    _, s_at = syms[base + i]
-                    val = val | jnp.where(allowed > base + i, _u32(s_at),
-                                          jnp.uint32(0)) << jnp.uint32(8 * i)
-            return val
-
-        v1le = pack4le(0)
-        v2le = pack4le(4)
-        bi = jnp.minimum(before, cnt)  # clamp past-count bytes (emit zeros)
-        sh8 = _u32((bi & 3) << 3)
-        w0 = v1le << sh8
-        w1 = ((v1le >> (jnp.uint32(31) - sh8)) >> 1) | (v2le << sh8)
-        w2 = (v2le >> (jnp.uint32(31) - sh8)) >> 1
-        wq = bi >> 2
-
-        flushed = smem[2]
-        s_lanes = min(128, tl)
-        for r8 in range(8):
-            for ck in range(tl // s_lanes):
-                sl = slice(ck * s_lanes, (ck + 1) * s_lanes)
-                wqc = wq[r8:r8 + 1, sl]
-                base_k = jnp.min(wqc)
-                wpad, lanes_reg, reg2 = _place_chunk(
-                    w0[r8:r8 + 1, sl], w1[r8:r8 + 1, sl],
-                    w2[r8:r8 + 1, sl], wqc, base_k, s_lanes)
-                slot = base_k - flushed * D_PAGE
-                a_base = pl.multiple_of((slot >> 7) << 7, 128)
-                sh = slot & 127
-                rolled = pltpu.roll(wpad, sh, 1)
-                rolled = jnp.where((lanes_reg >= sh)
-                                   & (lanes_reg < sh + reg2 - 128), rolled, 0)
-                pagebuf[0:1, pl.ds(a_base, reg2)] = \
-                    pagebuf[0:1, pl.ds(a_base, reg2)] | rolled
-
-        # flush completed pages (up to 3 per tile: <= 8x output expansion)
-        new_w = jnp.minimum(total_cum, cnt) >> 2
-        nfl = jnp.clip(new_w // D_PAGE - flushed, 0, 3)
-
-        @pl.when((nfl > 0) & (t_idx < last_tile))
-        def _flush():
-            for k in range(3):
-                @pl.when(nfl > k)
-                def _one(k=k):
-                    dst = pl.multiple_of(woff + (flushed + k) * D_PAGE, 128)
-                    cp = pltpu.make_async_copy(
-                        pagebuf.at[0, pl.ds(k * D_PAGE, D_PAGE)],
-                        out_ref.at[0, pl.ds(dst, D_PAGE)], sem)
-                    cp.start()
-                    cp.wait()
-
-            # shift the window left by nfl pages
-            @pl.when(nfl == 1)
-            def _s1():
-                pagebuf[0:1, 0:3 * D_PAGE] = pagebuf[0:1, D_PAGE:4 * D_PAGE]
-                pagebuf[0:1, 3 * D_PAGE:4 * D_PAGE] = \
-                    jnp.zeros((1, D_PAGE), jnp.int32)
-
-            @pl.when(nfl == 2)
-            def _s2():
-                pagebuf[0:1, 0:2 * D_PAGE] = \
-                    pagebuf[0:1, 2 * D_PAGE:4 * D_PAGE]
-                pagebuf[0:1, 2 * D_PAGE:4 * D_PAGE] = \
-                    jnp.zeros((1, 2 * D_PAGE), jnp.int32)
-
-            @pl.when(nfl == 3)
-            def _s3():
-                pagebuf[0:1, 0:D_PAGE] = pagebuf[0:1, 3 * D_PAGE:4 * D_PAGE]
-                pagebuf[0:1, D_PAGE:4 * D_PAGE] = \
-                    jnp.zeros((1, 3 * D_PAGE), jnp.int32)
-
-            smem[2] = flushed + nfl
-
-        @pl.when(t_idx == last_tile)
-        def _final():
-            f = smem[2]
-            dst = pl.multiple_of(woff + f * D_PAGE, 128)
-            cp = pltpu.make_async_copy(pagebuf.at[0, pl.ds(0, 4 * D_PAGE)],
-                                       out_ref.at[0, pl.ds(dst, 4 * D_PAGE)],
-                                       sem)
-            cp.start()
-            cp.wait()
-            ustage[...] = jnp.broadcast_to(
-                (total_cum < cnt).astype(jnp.int32).reshape(1, 1), (1, 128))
-            ucp = pltpu.make_async_copy(
-                ustage, under_ref.at[:, pl.ds(r * 128, 128)], usem)
-            ucp.start()
-            ucp.wait()
-
-
-def _stage2_decode_rows(ls8, b, p, payload_lens, out_counts, s_states,
-                        stride_words, interpret=False):
-    """v5 chain: rank planes -> decoded byte rows directly.
-
-    Returns ((B, 4*stride_words) u8 rows, underrun (B,) bool). Row r's
-    decoded bytes are out[r, :out_counts[r]]. Requires p % (8*128) == 0 and
-    stride_words % 128 == 0."""
-    if stride_words % 128:
-        raise ValueError("stride_words must be a multiple of 128")
-    tl = S2_LANES if p % (8 * S2_LANES) == 0 else 128
-    n_tiles = p // (8 * tl)
-    kern = functools.partial(_stage2_kernel_v5, s_states=s_states, tl=tl,
-                             stride_words=stride_words)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # payload_lens, out_counts
-        grid=(b, n_tiles),
-        in_specs=[pl.BlockSpec((8, 8, tl),
-                               lambda r_, t_, *_: (0, r_ * n_tiles + t_, 0))],
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                   pl.BlockSpec(memory_space=pl.ANY)],
-        scratch_shapes=[pltpu.VMEM((1, 4 * D_PAGE), jnp.int32),
-                        pltpu.VMEM((1, 128), jnp.int32),
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SMEM((3,), jnp.int32)],
-    )
-    flat, under = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((1, b * stride_words + 4 * D_PAGE),
-                                        jnp.int32),
-                   jax.ShapeDtypeStruct((1, b * 128), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret,
-    )(payload_lens.astype(jnp.int32), out_counts.astype(jnp.int32),
-      ls8.reshape(8, b * p // tl, tl))
-    rows = flat[0, : b * stride_words].reshape(b, stride_words)
-    rows = jax.lax.bitcast_convert_type(rows, jnp.uint8) \
-        .reshape(b, 4 * stride_words)
-    return rows, under[0, ::128] > 0
-
-
-def _stage2_chain_ls(ls8, b, p, payload_lens, out_counts, s_states,
-                     interpret=False):
-    """v4 chain on the rank kernel's combined (8, B*P) i32 plane array.
-
-    Returns (val1, val2, len1, len2) each (B, P) i32 + underrun (B,) bool.
-    Requires p % (8*128) == 0; callers dispatch to v3 otherwise."""
-    tl = S2_LANES if p % (8 * S2_LANES) == 0 else 128
-    n_tiles = p // (8 * tl)
-    m_rows = b * p // tl
-    kern = functools.partial(_stage2_kernel_v4, s_states=s_states, tl=tl,
-                             m_rows=m_rows)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # payload_lens, out_counts
-        grid=(b, n_tiles),
-        in_specs=[pl.BlockSpec((8, 8, tl),
-                               lambda r_, t_, *_: (0, r_ * n_tiles + t_, 0))],
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                   pl.BlockSpec(memory_space=pl.ANY)],
-        scratch_shapes=[pltpu.VMEM((32, tl), jnp.int32),
-                        pltpu.VMEM((1, 128), jnp.int32),
-                        [pltpu.SemaphoreType.DMA(()) for _ in range(4)],
-                        pltpu.SemaphoreType.DMA(()),
-                        pltpu.SMEM((2,), jnp.int32)],
-    )
-    packs, under = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((4 * m_rows, tl), jnp.int32),
-                   jax.ShapeDtypeStruct((1, b * 128), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret,
-    )(payload_lens.astype(jnp.int32), out_counts.astype(jnp.int32),
-      ls8.reshape(8, b * p // tl, tl))
-    quads = packs.reshape(4, b, p)
-    return (quads[0], quads[1], quads[2], quads[3], under[0, ::128] > 0)
-
-
-def decode_stage2_scan(ln: jnp.ndarray, sym: jnp.ndarray,
-                       payload_lens: jnp.ndarray, out_counts: jnp.ndarray,
-                       stride_words: int, s_states: int,
-                       interpret: bool = False):
-    """In-kernel FSM chain + Pallas emission: ((B, 4*stride_words) u8,
-    underrun).
-
-    ln/sym in stage1's plane-major slot order; s_states static >= the
-    batch's max code length (callers pick 8/16/32 and route longer codes to
-    the oracle). Row r's decoded bytes are out[r, :out_counts[r]]; bytes
-    past that are unspecified."""
-    val1, val2, len1, len2, underrun = _stage2_chain_pallas(
-        ln, sym, payload_lens, out_counts, s_states, interpret=interpret)
-    rows = _emit_packs(val1, val2, len1, len2, payload_lens, stride_words,
-                       interpret)
-    return rows, underrun
-
-
-def _emit_packs(val1, val2, len1, len2, payload_lens, stride_words,
-                interpret):
-    from .emit_pallas import emit_bits_rows
-
-    # interleave to (B, 2P) byte-lane order: lane 2j = first 4 syms of
-    # byte j, lane 2j+1 = the rest. Built with interior-padded lax.pad —
-    # a stack(axis=2).reshape materializes a (B, P, 2) array whose minor
-    # dim tiles 2 -> 128 on TPU (64x HBM blowup: 32 GiB at (8, 8 MiB),
-    # observed compile-time OOM).
-    def interleave(a, c):
-        da = jax.lax.pad(a, jnp.zeros((), a.dtype), ((0, 0, 0), (0, 1, 1)))
-        dc = jax.lax.pad(c, jnp.zeros((), c.dtype), ((0, 0, 0), (1, 0, 1)))
-        return da | dc
-
-    vals = jax.lax.bitcast_convert_type(interleave(val1, val2), jnp.uint32)
-    lens = interleave(len1, len2)
-    return emit_bits_rows(vals, lens, 2 * payload_lens, stride_words,
-                          interpret=interpret)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("s_states", "stride_words", "interpret"))
-def _decode_fused_tpu(payload, payload_lens, piv16, ncodes, ftab,
-                      out_counts, s_states, stride_words,
-                      interpret: bool = False):
-    """All-Pallas decode for codes <= 16 bits: rank kernel -> v5 FSM kernel
-    with in-kernel byte emission. Replaces the XLA stage1 (0.12 GB/s,
-    HBM-bound on one-hot temporaries) for the common case. Requires
-    p % 1024 == 0 (decode_batch dispatches smaller payloads to the XLA+v3
-    path)."""
-    b, p = payload.shape
-    w32 = windows32_bytes(payload)
-    ls8 = rank_planes_pallas(w32, piv16, ncodes, ftab, interpret=interpret)
-    return _stage2_decode_rows(ls8, b, p, payload_lens, out_counts,
-                               s_states, stride_words, interpret=interpret)
-
-
-_stage2_scan_jit = jax.jit(
-    decode_stage2_scan,
-    static_argnames=("stride_words", "s_states", "interpret"))
-
-
 _stage1_jit = jax.jit(decode_stage1)
 _stage2_jit = jax.jit(decode_stage2, static_argnames=("out_p",))
 
 
 def decode_batch(payload: jnp.ndarray, payload_lens: jnp.ndarray,
-                 tables: dict, out_counts: jnp.ndarray, out_p: int,
-                 max_len: int = 32):
+                 tables: dict, out_counts: jnp.ndarray, out_p: int):
     """(B, P) packed payloads -> ((B, out_p) uint8 symbols, underrun).
 
     out_p: static padded output size (>= max out_counts in the batch).
-    Positions past out_counts are unspecified on the TPU path (zero on the
-    XLA path) — termination is by count, like the reference (d.c:530).
-    max_len: the batch's max code bit length (picks the FSM state count on
-    the TPU path). Platform dispatch like the encode kernels: FSM scan +
-    Pallas emission on TPU, pointer-doubling gathers elsewhere."""
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        s_states = 8 if max_len <= 8 else (16 if max_len <= 16 else 32)
-        stride_bytes = max(out_p, 512)
-        if max_len <= 16 and payload.shape[1] % 1024 == 0:
-            # all-Pallas: rank kernel + dense v4 FSM + emission
-            piv16, ncodes, ftab = rank_tables(tables)
-            rows, under = _decode_fused_tpu(
-                jnp.asarray(payload), jnp.asarray(payload_lens),
-                piv16, ncodes, ftab, jnp.asarray(out_counts),
-                s_states=s_states, stride_words=stride_bytes // 4,
-                interpret=pallas_interpret())
-            return rows[:, :out_p], under
-        if max_len <= 32 and payload.shape[1] % 256 == 0:
-            # 17-32-bit codes: 32-bit rank kernel + v3 FSM chain (S=32)
-            piv32b, ncodes, ftab = rank_tables32(tables)
-            rows, under = _decode_fused32_tpu(
-                jnp.asarray(payload), jnp.asarray(payload_lens),
-                piv32b, ncodes, ftab, jnp.asarray(out_counts),
-                stride_words=stride_bytes // 4,
-                interpret=pallas_interpret())
-            return rows[:, :out_p], under
-        ln, sym = _stage1_jit(payload, tables)
-        rows, under = _stage2_scan_jit(
-            ln, sym, payload_lens, out_counts,
-            stride_words=stride_bytes // 4, s_states=s_states,
-            interpret=pallas_interpret())
-        return rows[:, :out_p], under
+    Positions past out_counts are zero; termination is by count, like the
+    reference (d.c:530). The two stages are separate jit programs, chained
+    through device-resident arrays."""
     ln, sym = _stage1_jit(payload, tables)
     return _stage2_jit(ln, sym, payload_lens, out_counts, out_p=out_p)
 
 
 def decode_batch_fused(payload, payload_lens, tables, out_counts, out_p):
-    """Single-graph composite for shard_map on CPU meshes (one callee)."""
+    """Single-graph composite for shard_map (one jittable callee)."""
     ln, sym = decode_stage1(payload, tables)
     return decode_stage2(ln, sym, payload_lens, out_counts, out_p)

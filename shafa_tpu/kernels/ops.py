@@ -1,6 +1,5 @@
-"""Shared device primitives: cumsum helpers, LUT application, chains.
+"""Shared device primitives: scans, segment binary search, compaction.
 
-These are the TPU-friendly building blocks the codec kernels compose.
 Everything is shape-static and jit-safe; batch dimension B is blocks.
 """
 
@@ -8,7 +7,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def exclusive_cumsum(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
@@ -16,38 +14,10 @@ def exclusive_cumsum(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
     return inc - x
 
 
-def lut_nibble(x: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """table[x] for byte-valued x via 4-bit one-hot bilinear form on the MXU.
-
-    Direct 256-entry gathers run at ~90 Melem/s on v5e; this runs >10x faster.
-    `table` must be integer-valued with |values| < 2**24: the one-hot rows
-    select a single table entry per output, and f32 carries integers up to
-    2**24 exactly. Precision HIGHEST is required: TPU's default f32 matmul
-    does bf16 multiplies, which round table values above 2**8.
-    """
-    tab2d = table.reshape(16, 16).astype(jnp.float32)
-    i16 = jnp.arange(16, dtype=x.dtype)
-    oh_hi = (x[..., None] >> 4 == i16).astype(jnp.float32)
-    oh_lo = (x[..., None] & 15 == i16).astype(jnp.float32)
-    mid = jax.lax.dot_general(
-        oh_hi, tab2d, (((x.ndim,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-    return jnp.sum(mid * oh_lo, axis=-1).astype(jnp.int32)
-
-
-def lut_nibble_u32(x: jnp.ndarray, table_u32: np.ndarray) -> jnp.ndarray:
-    """table[x] for a uint32-valued table: two exact 16-bit-half lookups."""
-    hi = lut_nibble(x, jnp.asarray((table_u32 >> 16).astype(np.int32)))
-    lo = lut_nibble(x, jnp.asarray((table_u32 & 0xFFFF).astype(np.int32)))
-    return (hi.astype(jnp.uint32) << 16) | lo.astype(jnp.uint32)
-
-
-#: Query-chunk width for output-centric emission. Each chunk's ~30
-#: gather/elementwise intermediates are materialized by XLA (gathers don't
-#: fuse as producers on TPU); chunking through lax.map reuses one chunk's
-#: buffers across iterations instead of allocating all of them at once
-#: (observed 108 GB HBM peak for an unrolled 536M-query emission).
+#: Query-chunk width for output-centric emission. Chunking through lax.map
+#: reuses one chunk's gather/elementwise intermediates across iterations
+#: instead of allocating all of them at once (an unrolled 536M-query
+#: emission would hold ~30 such arrays of that length).
 EMIT_CHUNK = 1 << 22
 
 
@@ -74,11 +44,10 @@ def searchsorted_last_le(keys_flat: jnp.ndarray, base: jnp.ndarray,
 
     keys_flat holds concatenated sorted segments of length n; base is each
     query's segment offset. Returns -1 when keys[base] > q. This is the
-    building block for all variable-rate EMISSION on TPU: XLA's scatter
-    (even sorted) lowers to a serialized per-update loop (~10-60 Melem/s
-    measured on v5e), while gathers run near HBM speed — so every "place
-    values at computed offsets" kernel here is inverted into "for every
-    output slot, binary-search which value covers it".
+    building block of all variable-rate emission here: every "place values
+    at computed offsets" kernel is inverted into "for every output slot,
+    binary-search which value covers it", so each output is written once by
+    a gather and no scatter is needed.
     """
     ub = jnp.zeros(q.shape, jnp.int32)  # count of entries <= q
     step = 1 << max(0, (n - 1).bit_length() - 1)
@@ -94,92 +63,10 @@ def compact_rows(rows: jnp.ndarray, lens: jnp.ndarray, out_sz: int):
     """Concatenate the valid prefixes of each row into one flat vector.
 
     rows (B, Q) uint8, lens (B,) -> (out_sz,) uint8 with
-    out[cumsum(lens)[i-1] : cumsum(lens)[i]] = rows[i, :lens[i]].
-
-    Platform dispatch: on TPU the Pallas emission kernel concatenates
-    4-byte word lanes (compact_rows_pallas); elsewhere the output-centric
-    gather formulation below (each output byte binary-searches its source
-    row — fine on CPU, serialized ~35 Melem/s on real TPU).
+    out[cumsum(lens)[i-1] : cumsum(lens)[i]] = rows[i, :lens[i]] and zeros
+    past lens.sum(). Output-centric: each output byte binary-searches its
+    source row.
     """
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        return compact_rows_pallas(rows, lens, out_sz,
-                                   interpret=pallas_interpret())
-    return compact_rows_xla(rows, lens, out_sz)
-
-
-def _byteswap32(x_u32):
-    return ((x_u32 >> 24) | ((x_u32 >> 8) & jnp.uint32(0xFF00))
-            | ((x_u32 << 8) & jnp.uint32(0xFF0000)) | (x_u32 << 24))
-
-
-def compact_rows_pallas(rows: jnp.ndarray, lens: jnp.ndarray, out_sz: int,
-                        interpret: bool = False):
-    """compact_rows via the Pallas emission kernel: one lane per 4 source
-    bytes (32-bit payload), so compaction runs at the emitter's word rate
-    instead of byte-probing gathers."""
-    b, q = rows.shape
-    if q % 4:
-        rows = jnp.pad(rows, ((0, 0), (0, (-q) % 4)))
-        q = rows.shape[1]
-    words = _byteswap32(jax.lax.bitcast_convert_type(
-        rows.reshape(b, q // 4, 4), jnp.uint32))
-    return compact_words_pallas(words, lens, out_sz, interpret=interpret,
-                                msb_first=True)
-
-
-def compact_words(words: jnp.ndarray, lens: jnp.ndarray, out_sz: int):
-    """Platform-dispatched compact_words_pallas (byte-expanding XLA
-    fallback for CPU meshes/tests)."""
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        return compact_words_pallas(words, lens, out_sz,
-                                    interpret=pallas_interpret())
-    b, q = words.shape
-    rows = jax.lax.bitcast_convert_type(
-        jax.lax.bitcast_convert_type(words, jnp.uint32), jnp.uint8) \
-        .reshape(b, 4 * q)
-    return compact_rows_xla(rows, lens, out_sz)
-
-
-def compact_words_pallas(words: jnp.ndarray, lens: jnp.ndarray, out_sz: int,
-                         interpret: bool = False, msb_first: bool = False):
-    """Concatenate per-row byte streams given in u32-WORD lanes.
-
-    words (B, Q) u32: row r's byte stream is its word lanes in order —
-    little-endian byte order unless msb_first (i.e. lane j holds bytes
-    4j..4j+3). lens (B,) true byte lengths. Returns (out_sz,) uint8 with
-    rows back-to-back (out_sz >= lens.sum(), bucketed). This is the word-
-    layout sibling of compact_rows_pallas — the run-expansion kernel's
-    pages feed it directly, with no (B, P)-byte intermediate."""
-    from .emit_pallas import aligned_offsets_device, emit_bits
-    b, q = words.shape
-    if not msb_first:
-        words = _byteswap32(words.astype(jnp.uint32))
-    lens = lens.astype(jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (b, q), 1)
-    rem = jnp.clip(lens[:, None] - lane * 4, 0, 4)
-    bits = 8 * rem
-    mask = jnp.where(
-        rem > 0, (~jnp.uint32(0)) << (32 - bits).astype(jnp.uint32),
-        jnp.uint32(0))
-    # rows laid back-to-back: row r starts at the exact byte offset
-    # cumsum(lens)[r-1] — NOT 512-aligned, so the per-row woff trick can't
-    # apply; instead emit everything as ONE logical row: a single row of
-    # B*Q lanes whose invalid lanes carry 0 bits.
-    flat_val = (words.astype(jnp.uint32) & mask).reshape(1, b * q)
-    flat_bits = bits.reshape(1, b * q)
-    n_lanes = jnp.array([b * q], jnp.int32)
-    woff = jnp.zeros(1, jnp.int32)
-    out_words = aligned_offsets_device(out_sz)
-    flat = emit_bits(flat_val, flat_bits, n_lanes, woff,
-                     out_words=out_words, interpret=interpret)
-    return jax.lax.bitcast_convert_type(
-        flat[0, : (out_sz + 3) // 4], jnp.uint8).reshape(-1)[:out_sz]
-
-
-def compact_rows_xla(rows: jnp.ndarray, lens: jnp.ndarray, out_sz: int):
-    """Gather-formulated compact_rows (CPU path; see compact_rows)."""
     b, q = rows.shape
     lens = lens.astype(jnp.int32)
     bounds = jnp.cumsum(lens)  # (B,) row end offsets
@@ -196,32 +83,3 @@ def compact_rows_xla(rows: jnp.ndarray, lens: jnp.ndarray, out_sz: int):
         return jnp.where(valid, out, 0).astype(jnp.uint8)
 
     return map_query_chunks(emit, out_sz)
-
-
-def segment_fill(markers: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
-    """Segment ids from start markers: cumsum(markers) - 1."""
-    return jnp.cumsum(markers.astype(jnp.int32), axis=axis) - 1
-
-
-def start_index_fill(is_start: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
-    """For every position, the index of its segment's start (cummax trick)."""
-    pos = jax.lax.broadcasted_iota(jnp.int32, is_start.shape, is_start.ndim - 1)
-    return jax.lax.cummax(jnp.where(is_start, pos, 0), axis=axis)
-
-
-def chain_positions(jump: jnp.ndarray, count: int) -> jnp.ndarray:
-    """First `count` iterates of 0 under i -> jump[i] (pointer doubling).
-
-    jump: (n+1,) int32 with absorbing state n (jump[n] == n). Returns (count,)
-    increasing positions; entries past stream end equal n. Large-array gathers
-    are fast on TPU (~435 GB/s), so each doubling round is bandwidth-bound.
-    """
-    rounds = max(1, int(np.ceil(np.log2(max(count, 2)))))
-    pos = jnp.zeros(1, jnp.int32)
-    stride = jump
-    for _ in range(rounds):
-        if pos.shape[0] >= count:
-            break
-        pos = jnp.concatenate([pos, stride[pos]])
-        stride = stride[stride]
-    return pos[:count]

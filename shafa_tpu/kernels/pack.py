@@ -1,19 +1,18 @@
-"""Bit-pack encode — module C's binary_coding (c.c:52-83), TPU formulation.
+"""Bit-pack encode — module C's binary_coding (c.c:52-83), batched.
 
 The reference's trick is a pre-shifted 8-offset table so its inner loop is
 branchless ORs (c.c:104,186-219). The vector equivalent here is fully
-OUTPUT-CENTRIC, because XLA's TPU scatter — even with sorted indices — lowers
-to a serialized per-update loop (measured ~10-60 Melem/s on v5e, 2-3 orders
-below HBM speed), while gathers are bandwidth-bound:
+OUTPUT-CENTRIC: every output byte is computed by gathers, with no scatter:
 
-  1. per-symbol (len, leftaligned32) LUT lookup via nibble matmuls
+  1. per-symbol (len, leftaligned32) lookup: a gather from the block's
+     256-entry table
   2. bit offsets = exclusive cumsum of lengths (MSB-first stream order);
      symbol k owns the bit interval [off[k], off[k+1])  — the intervals
      PARTITION the stream, so "which symbols touch output byte o" is a
      contiguous run of at most 9 (8 one-bit starts + 1 spanning code)
   3. every output byte binary-searches the last symbol starting at-or-before
      its first bit (searchsorted_last_le), then ORs the aligned slices of
-     the <=9 candidate codes — pure gathers + VPU shifts.
+     the <=9 candidate codes — gathers and shifts.
 
 Codes longer than 32 bits (pathological skew; needs a block > 2^32 bytes to
 even approach optimality) fall back to the numpy oracle at the backend level.
@@ -21,14 +20,11 @@ even approach optimality) fall back to the numpy oracle at the backend level.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .ops import exclusive_cumsum, lut_nibble, lut_nibble_u32, \
-    map_query_chunks, searchsorted_last_le
+from .ops import exclusive_cumsum, map_query_chunks, searchsorted_last_le
 
 MAX_CODE_BITS = 32
 #: max symbols whose bit interval can intersect one output byte
@@ -45,16 +41,15 @@ def pack_stage1(x: jnp.ndarray, lengths: jnp.ndarray,
                 code_lens: jnp.ndarray, code_vals: jnp.ndarray):
     """LUT lookup + bit-offset scan: (off, val, bit_total, out_len_bytes).
 
-    Kept as a SEPARATE compile unit from the emission stage: fusing the MXU
-    LUT matmuls + cumsum with the emission gathers into one XLA program
-    blows compile time from ~6 s to >400 s on v5e (same runtime either way).
+    A separate compile unit from the emission stage (pack_batch,
+    pack_batch_compact), chained through device-resident arrays.
     """
     b, p = x.shape
     pos = jax.lax.broadcasted_iota(jnp.int32, (b, p), 1)
     valid = pos < lengths[:, None]
-    # Per-row LUTs: one-hot matmul against each row's table. vmap over rows.
-    ln = jax.vmap(lut_nibble)(x, code_lens)
-    val = jax.vmap(lut_nibble_u32_rows)(x, code_vals)
+    xi = x.astype(jnp.int32)
+    ln = jnp.take_along_axis(jnp.asarray(code_lens, jnp.int32), xi, axis=1)
+    val = jnp.take_along_axis(jnp.asarray(code_vals, jnp.uint32), xi, axis=1)
     ln = jnp.where(valid, ln, 0)
     off = exclusive_cumsum(ln, axis=1)  # bit offsets
     bit_total = off[:, -1] + ln[:, -1]
@@ -141,84 +136,15 @@ _stage2_jit = jax.jit(pack_stage2)
 _compact_jit = jax.jit(pack_compact, static_argnames=("out_sz",))
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pack_batch_rows_pallas(x, lengths, code_lens, code_vals,
-                           interpret: bool = False):
-    """Pallas pack into the padded (B, 4P+16) row layout of pack_batch.
-
-    Packed byte lengths come from an on-device histogram . code-lens dot
-    (one MXU pass); emission is emit_coded_rows. shard_map-friendly: no
-    host-side offsets, so this is also the per-shard mesh path.
-    """
-    from .emit_pallas import emit_coded_rows
-    from .histogram import histogram_batch
-    b, p = x.shape
-    hist = histogram_batch(x, lengths)
-    bits = jnp.sum(hist * code_lens, axis=1)  # < 2^31 (caller's guard)
-    out_len = (bits + 7) >> 3
-    cv = code_vals.astype(jnp.uint32)
-    hi = (cv >> 16).astype(jnp.int32)
-    lo = (cv & jnp.uint32(0xFFFF)).astype(jnp.int32)
-    packed = emit_coded_rows(x, lengths, code_lens.astype(jnp.int32), hi, lo,
-                             pack_out_bound(p) // 4, interpret=interpret)
-    return packed, out_len
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pack_batch_words_pallas(x, lengths, code_lens, code_vals,
-                            interpret: bool = False):
-    """Pallas pack into (B, stride_words) int32 little-endian word rows.
-
-    Same contract as pack_batch_rows_pallas but without the u8 bitcast of
-    the padded buffer (see emit_coded_words). Row r's packed bytes are the
-    u8 view of out[r, :ceil(out_len[r]/4)]."""
-    from .emit_pallas import emit_coded_words
-    from .histogram import histogram_batch
-    b, p = x.shape
-    hist = histogram_batch(x, lengths)
-    bits = jnp.sum(hist * code_lens, axis=1)
-    out_len = (bits + 7) >> 3
-    cv = code_vals.astype(jnp.uint32)
-    hi = (cv >> 16).astype(jnp.int32)
-    lo = (cv & jnp.uint32(0xFFFF)).astype(jnp.int32)
-    words = emit_coded_words(x, lengths, code_lens.astype(jnp.int32), hi, lo,
-                             pack_out_bound(p) // 4, interpret=interpret)
-    return words, out_len
-
-
-def pack_batch_words(x, lengths, code_lens, code_vals):
-    """Platform-dispatched pack to word rows: ((B, W) i32 LE, out_len).
-
-    The mesh path's per-shard pack shape (feeds ops.compact_words for the
-    exact-bytes download). XLA fallback packs bytes then merges to words
-    (a collapsing bitcast — cheap, unlike the expanding direction)."""
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        return pack_batch_words_pallas(x, lengths, code_lens, code_vals,
-                                       interpret=pallas_interpret())
-    rows, out_len = pack_batch(x, lengths, code_lens, code_vals)
-    b, q = rows.shape
-    words = jax.lax.bitcast_convert_type(
-        rows.reshape(b, q // 4, 4), jnp.uint32)
-    return jax.lax.bitcast_convert_type(words, jnp.int32), out_len
-
-
 def pack_batch(x: jnp.ndarray, lengths: jnp.ndarray,
                code_lens: jnp.ndarray, code_vals: jnp.ndarray):
     """Pack (B, P) uint8 symbol streams with per-block code tables.
 
     code_lens: (B, 256) int32; code_vals: (B, 256) uint32 (left-aligned).
     Returns ((B, 4P+16) uint8 packed, (B,) packed byte lengths); bytes past
-    each row's length are unspecified on the Pallas path (zero on XLA).
-
-    Platform-dispatched like rle_encode_batch: the Mosaic kernel on TPU;
-    elsewhere the two XLA stages as separate jit calls (device-resident
-    between them — see pack_stage1 for why they must not fuse).
+    each row's length are zero. The two stages run as separate jit calls,
+    device-resident between them.
     """
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        return pack_batch_rows_pallas(x, lengths, code_lens, code_vals,
-                                      interpret=pallas_interpret())
     off, val, bit_total, out_len = _stage1_jit(x, lengths, code_lens,
                                                code_vals)
     return _stage2_jit(off, val, bit_total), out_len
@@ -242,60 +168,8 @@ def pack_byte_lens(hists: np.ndarray, code_lens: np.ndarray) -> np.ndarray:
     """Exact packed byte length per row from its stream histogram.
 
     bits(row) = sum_s hist[row, s] * code_len[row, s]; the histogram of the
-    pack input is already on host (module T consumed it), so the Pallas path
-    gets its output layout for free — no device size pre-pass.
+    pack input is already on host (module T consumed it), so the mesh path
+    sizes its per-shard output without a device pre-pass.
     """
     bits = (hists.astype(np.int64) * code_lens.astype(np.int64)).sum(axis=1)
     return (bits + 7) >> 3
-
-
-def pack_batch_pallas(x, lengths, code_lens, code_vals, out_words: int,
-                      woff: np.ndarray, interpret: bool = False):
-    """Pack via the Pallas emission kernel (production TPU path).
-
-    x (B, P) uint8 (device-resident ok); woff/out_words from pack_byte_lens
-    + emit_pallas.aligned_offsets (out_words may be bucketed up). Returns
-    the (1, out_words) int32 buffer whose little-endian uint8 view holds
-    row r's packed bytes at [4*woff[r], 4*woff[r] + byte_lens[r]).
-    Replaces the reference's pre-shifted-table OR loop (c.c:91-237, 52-83).
-    """
-    from .dispatch import pallas_interpret
-    from .emit_pallas import emit_coded
-    cv = np.asarray(code_vals, dtype=np.uint32)
-    hi = (cv >> 16).astype(np.int32)
-    lo = (cv & np.uint32(0xFFFF)).astype(np.int32)
-    return emit_coded(x, lengths, code_lens, hi, lo, woff,
-                      out_words=out_words,
-                      interpret=interpret or pallas_interpret())
-
-
-def pack_batch_fused(x, lengths, code_lens, code_vals):
-    """Single-graph composite (for shard_map on CPU meshes / interpreters
-    where the split isn't needed and a single jittable callee is)."""
-    off, val, bit_total, out_len = pack_stage1(x, lengths, code_lens,
-                                               code_vals)
-    return pack_stage2(off, val, bit_total), out_len
-
-
-def lut_nibble_u32_rows(x_row: jnp.ndarray, tab_row: jnp.ndarray):
-    """Row-wise uint32 LUT via two 16-bit-half nibble lookups."""
-    hi = lut_nibble(x_row, (tab_row >> 16).astype(jnp.int32))
-    lo = lut_nibble(x_row, (tab_row & 0xFFFF).astype(jnp.int32))
-    return (hi.astype(jnp.uint32) << 16) | lo.astype(jnp.uint32)
-
-
-def build_code_luts(block_codes, np_module=np):
-    """Host helper: list of 256 code strings per block -> stacked LUT arrays.
-
-    Returns (lens (B,256) int32, vals (B,256) uint32, max_len int).
-    Raises OverflowError if any code exceeds 32 bits (caller falls back).
-    """
-    from ..codes import code_table_arrays
-    lens, vals = [], []
-    maxlen = 0
-    for cs in block_codes:
-        ln, va = code_table_arrays(cs, width=32)
-        lens.append(ln)
-        vals.append(va)
-        maxlen = max(maxlen, int(ln.max()))
-    return (np_module.stack(lens), np_module.stack(vals), maxlen)

@@ -12,8 +12,7 @@ Encode formulation (no byte-serial loop):
   5. OUTPUT-CENTRIC emission: every output byte binary-searches its emitting
      input lane (first lane whose cumulative extent exceeds it) and picks
      0x00 / symbol / count / literal from the lane's fields by its relative
-     offset. TPU scatter is serialized; gathers are bandwidth-bound (see
-     ops.searchsorted_last_le), so emission inverts into gathers.
+     offset (see ops.searchsorted_last_le).
 
 Escape rule parity with the reference: a sub-segment is escaped iff its
 length >= 4 or its symbol is 0x00; literals of short runs are emitted one
@@ -41,16 +40,13 @@ MIN_ESCAPE_RUN = 4
 
 
 def rle_out_bound(p: int) -> int:
-    """Worst-case RLE output for a p-byte block (alternating 0,x doubles).
-
-    Rounded up to a 512-multiple: a ragged last dim (2p+8 is not a lane
-    multiple) propagates into every downstream kernel and measurably
-    inflates Mosaic compile times."""
+    """Worst-case RLE output for a p-byte block (alternating 0,x doubles),
+    rounded up to a 512-multiple so downstream shapes stay aligned."""
     return (2 * p + 8 + 511) & ~511
 
 
 def _rle_analyze(x: jnp.ndarray, lengths: jnp.ndarray):
-    """Shared per-lane run analysis (traced inside both emission paths).
+    """Shared per-lane run analysis (traced inside rle_encode_batch).
 
     Returns (xi, valid, sub_start, sub_len, escaped, contrib): every lane's
     sub-segment geometry and its output contribution in bytes (3 at an
@@ -81,35 +77,12 @@ def _rle_analyze(x: jnp.ndarray, lengths: jnp.ndarray):
     return xi, valid, sub_start, sub_len, escaped, contrib
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rle_encode_batch_pallas(x: jnp.ndarray, lengths: jnp.ndarray,
-                            interpret: bool = False):
-    """rle_encode_batch via the Pallas emission kernel (production TPU path).
-
-    Per-lane payload model (emit_pallas.emit_bits): an escape start emits the
-    24-bit triple (0x00, symbol, count), a literal emits its 8-bit byte,
-    escaped-run interiors emit nothing. Bytes past each row's out length are
-    UNSPECIFIED (the XLA path zeroes them); all consumers mask by length.
-    """
-    from .emit_pallas import emit_bits_rows
-    b, p = x.shape
-    xi, valid, sub_start, sub_len, escaped, contrib = _rle_analyze(x, lengths)
-    out_len = contrib.sum(axis=1)
-    is_trip = escaped & sub_start
-    bitlen = jnp.where(valid,
-                       jnp.where(escaped, jnp.where(sub_start, 24, 0), 8), 0)
-    val = jnp.where(is_trip, (xi << 16) | (sub_len << 8), xi << 24)
-    enc = emit_bits_rows(val.astype(jnp.uint32), bitlen, lengths,
-                         rle_out_bound(p) // 4, interpret=interpret)
-    return enc, out_len
-
-
 @jax.jit
-def rle_encode_batch_xla(x: jnp.ndarray, lengths: jnp.ndarray):
-    """(B, P) uint8 + (B,) lengths -> ((B, 2P+8) uint8, (B,) out lengths)."""
+def rle_encode_batch(x: jnp.ndarray, lengths: jnp.ndarray):
+    """(B, P) uint8 + (B,) lengths -> ((B, rle_out_bound(P)) uint8, (B,) out
+    lengths). Bytes past each row's out length are zero."""
     b, p = x.shape
     out_p = rle_out_bound(p)
-    pos = jax.lax.broadcasted_iota(jnp.int32, (b, p), 1)
     xi, valid, sub_start, sub_len, escaped, contrib = _rle_analyze(x, lengths)
     cum = jnp.cumsum(contrib, axis=1)  # inclusive: lane i's output extent end
     out_len = cum[:, -1]
@@ -139,20 +112,6 @@ def rle_encode_batch_xla(x: jnp.ndarray, lengths: jnp.ndarray):
     return out.reshape(b, out_p), out_len
 
 
-def rle_encode_batch(x: jnp.ndarray, lengths: jnp.ndarray):
-    """Platform-dispatched RLE encode: Pallas on TPU, XLA gathers elsewhere.
-
-    Same contract either way: ((B, rle_out_bound(P)) uint8, (B,) out
-    lengths); bytes past each row's out length are unspecified on the Pallas
-    path (zero on the XLA path) — every consumer masks by length.
-    """
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit():
-        return rle_encode_batch_pallas(x, lengths,
-                                       interpret=pallas_interpret())
-    return rle_encode_batch_xla(x, lengths)
-
-
 def _token_starts(xi: jnp.ndarray) -> jnp.ndarray:
     """Token-start mask per row: orbit of 0 under i -> i + (3 if 0x00 else 1).
 
@@ -162,9 +121,7 @@ def _token_starts(xi: jnp.ndarray) -> jnp.ndarray:
     bytes). Per-byte transitions are functions {0,1,2}->{0,1,2}; composition
     is associative and, encoded as a 3-vector of next-states, costs a few
     selects — so lax.associative_scan runs the whole history-dependent
-    tokenization in log2(P) ELEMENTWISE rounds (bandwidth-bound), where the
-    old pointer-doubling's strided gathers serialized on TPU (~35 Melem/s
-    measured on v5e — minutes at 8 MiB blocks).
+    tokenization in log2(P) elementwise rounds, with no gathers.
     """
     b, p = xi.shape
     esc = xi == 0
@@ -241,12 +198,13 @@ def rle_expand_batch(x: jnp.ndarray, lengths: jnp.ndarray, out_p: int):
 
 
 @functools.partial(jax.jit, static_argnames=("out_sz",))
-def rle_expand_compact_xla(x: jnp.ndarray, lengths: jnp.ndarray, out_sz: int):
-    """Gather-formulated expand + compaction (CPU path; see dispatcher).
+def rle_expand_compact(x: jnp.ndarray, lengths: jnp.ndarray, out_sz: int):
+    """Fused expand + row compaction: all rows' decompressed bytes
+    concatenated in order into one (out_sz,) uint8 buffer (the exact bytes
+    the host writes), skipping the (B, out_p) padded byte intermediate.
 
     Output-centric: every output byte binary-searches its row, then its
-    emitting token — ~23 gather probes per byte, which serializes on real
-    TPU (83 Melem/s measured: the whole of BENCH_r03's 27 s decode)."""
+    emitting token (~log2(B) + log2(P) gather probes per byte)."""
     b, p = x.shape
     _, sym, cnt = _token_fields(x, lengths)
     cum = jnp.cumsum(cnt, axis=1)
@@ -264,46 +222,3 @@ def rle_expand_compact_xla(x: jnp.ndarray, lengths: jnp.ndarray, out_sz: int):
         return jnp.where(pos < bounds[b - 1], byte, 0).astype(jnp.uint8)
 
     return map_query_chunks(emit, out_sz)
-
-
-@functools.partial(jax.jit, static_argnames=("out_sz", "out_p", "interpret"))
-def rle_expand_compact_pallas(x: jnp.ndarray, lengths: jnp.ndarray,
-                              out_sz: int, out_p: int,
-                              interpret: bool = False):
-    """Expand via the page kernel + word-lane compaction (production TPU
-    path — no gathers; see kernels/expand_pallas.py). out_p: static padded
-    per-row output bound (bytes, multiple of 2048)."""
-    from .expand_pallas import rle_expand_pages
-    from .ops import compact_words_pallas
-    pages, out_len = rle_expand_pages(x, lengths, out_p, interpret=interpret)
-    return compact_words_pallas(pages, out_len, out_sz, interpret=interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("out_sz", "out_p", "interpret"))
-def rle_expand_compact_prepped(prep: dict, out_sz: int, out_p: int,
-                               interpret: bool = False):
-    """rle_expand_compact_pallas from a precomputed expand_pallas.
-    rle_expand_prep dict — callers that downloaded exact sizes from the
-    prep skip a second token-FSM pass over the decoded stream."""
-    from .expand_pallas import rle_expand_pages_prepped
-    from .ops import compact_words_pallas
-    pages, out_len = rle_expand_pages_prepped(prep, out_p,
-                                              interpret=interpret)
-    return compact_words_pallas(pages, out_len, out_sz, interpret=interpret)
-
-
-def rle_expand_compact(x: jnp.ndarray, lengths: jnp.ndarray, out_sz: int,
-                       out_p: int | None = None):
-    """Fused expand + row compaction: all rows' decompressed bytes
-    concatenated in order into one (out_sz,) uint8 buffer (the exact bytes
-    the host writes), skipping the (B, out_p) padded byte intermediate.
-
-    Platform-dispatched: the Pallas page-expansion kernel on TPU (callers
-    must pass out_p >= the largest decompressed row, a 2048-multiple),
-    XLA binary-search gathers elsewhere.
-    """
-    from .dispatch import pallas_interpret, use_pallas_emit
-    if use_pallas_emit() and out_p is not None:
-        return rle_expand_compact_pallas(x, lengths, out_sz, out_p,
-                                         interpret=pallas_interpret())
-    return rle_expand_compact_xla(x, lengths, out_sz)

@@ -1,27 +1,27 @@
-"""Multi-host execution: DCN scale-out of the block-parallel codec.
+"""Multi-host execution: network scale-out of the block-parallel codec.
 
 The reference is single-process (SURVEY.md §5.8: no MPI/NCCL/sockets — the
-pthread join chain is its whole communication layer). The TPU-native
-equivalent for N hosts x M chips:
+pthread join chain is its whole communication layer). The device
+equivalent for N hosts x M devices:
 
   * hosts join one JAX runtime via ``jax.distributed.initialize`` (env-driven:
-    COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID — or auto on TPU pods);
+    COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID; see init_from_env);
   * blocks are partitioned into CONTIGUOUS per-host ranges in block order —
     the reference's ordered-write guarantee (multithread.c:79) becomes a
     deterministic block->host map plus offset-addressed writes;
   * each host reads only its byte range of the input and encodes it locally
-    (single-host fused path over its local chips);
+    (single-host fused path over its local devices);
   * the only cross-host exchanges are KB-scale: per-block sizes and 256-bin
     histograms, all-gathered so every host can (a) compute the byte offset
     of its output shard and (b) build identical .cod tables;
   * every host pwrites its own shard of .rle/.shaf at its computed offset
-    into the shared file (shared FS assumed, as on TPU pods); host 0 writes
+    into the shared file (a shared file system is assumed); host 0 writes
     the tiny ASCII sidecars (.freq/.cod) and headers.
 
 Tested by running the partition/splice machinery with a simulated
 (process_index, process_count) in one process (tests/test_multihost.py) —
-the same code path a real pod takes, minus the DCN transport, which is
-jax.distributed's responsibility.
+the same code path a real cluster takes, minus the network transport,
+which is jax.distributed's responsibility.
 """
 
 from __future__ import annotations
@@ -37,29 +37,27 @@ from .errors import FileInaccessibleError, FileTooSmallError
 
 
 def init_from_env() -> None:
-    """Join the multi-host runtime. On TPU pods jax.distributed.initialize()
-    autodetects; otherwise COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID.
+    """Join the multi-process runtime from COORDINATOR_ADDRESS,
+    NUM_PROCESSES and PROCESS_ID.
 
-    Must run before ANY backend-initializing jax call (jax.devices etc.),
-    so the already-initialized check inspects jax.distributed's own state
-    instead of calling jax.process_count()."""
+    A coordinator on a loopback address is reachable only from this host,
+    so every process shares the host: each then takes one local device,
+    the one numbered by its PROCESS_ID, instead of all of them. Otherwise
+    each host runs one process over all its local devices.
+
+    Must run before ANY backend-initializing jax call (jax.devices etc.)."""
     import jax
-    try:
-        from jax._src import distributed as _dist
-        if getattr(_dist.global_state, "client", None) is not None:
-            return  # already initialized
-    except ImportError:
-        pass
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        jax.distributed.initialize(
-            coordinator_address=os.environ["COORDINATOR_ADDRESS"],
-            num_processes=int(os.environ["NUM_PROCESSES"]),
-            process_id=int(os.environ["PROCESS_ID"]))
-    else:
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-process fallback
+    if jax.distributed.is_initialized():
+        return
+    addr = os.environ["COORDINATOR_ADDRESS"]
+    pid = int(os.environ["PROCESS_ID"])
+    host = addr.rsplit(":", 1)[0].strip("[]")
+    shared_host = host in ("localhost", "::1") or host.startswith("127.")
+    jax.distributed.initialize(
+        coordinator_address=addr,
+        num_processes=int(os.environ["NUM_PROCESSES"]),
+        process_id=pid,
+        local_device_ids=[pid] if shared_host else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +85,7 @@ def partition_blocks(n_blocks: int, process_count: int,
 class Comm:
     """Host-level communication: process identity + small-array all-gather.
 
-    The production implementation rides jax.distributed (DCN); tests inject
+    The production implementation rides jax.distributed; tests inject
     a thread-barrier implementation to simulate N hosts in one process
     (tests/test_multihost.py) — the codec logic is identical either way.
     """

@@ -5,9 +5,9 @@ Two tiers per stage:
   * ``slow_*`` — direct transliterations of the format SPEC (not of the C code
     structure): byte-at-a-time, obviously correct. Used only by tests as the
     ground truth on small inputs (alongside the compiled C reference).
-  * vectorized numpy — the same math as the TPU kernels (segment scans,
+  * vectorized numpy — the same math as the device kernels (segment scans,
     rank-decode, pointer doubling), used as the CPU fallback in the pipeline
-    and as the differential baseline for the Pallas/JAX kernels.
+    and as the differential baseline for the JAX kernels.
 
 Format semantics being implemented (citations into /root/reference):
   RLE escape rule      f.c:29-55   (run>=4 or symbol 0x00 -> `00 sym count`,
@@ -106,7 +106,7 @@ def rle_segments(x: np.ndarray):
     """Split a block into RLE sub-segments (runs capped at 255).
 
     Returns (sym, sub_len, escaped): one entry per sub-segment in stream order.
-    This is the vectorized formulation shared with the TPU kernel: run
+    This is the vectorized formulation shared with the device kernel: run
     boundaries -> segment start indices -> 255-cap splits -> escape decision.
     """
     n = x.size
@@ -225,7 +225,8 @@ def decode_tables(codes: Sequence[str]):
 
 def unpack(payload: bytes, codes: Sequence[str], out_count: int) -> np.ndarray:
     """Vectorized prefix decode: per-bit-position rank, then pointer doubling
-    along the symbol chain. Same plan as the TPU kernel (kernels/decode.py)."""
+    along the symbol chain. Same plan as the device kernel
+    (kernels/decode.py)."""
     if out_count == 0:
         return np.empty(0, np.uint8)
     pv, ln_tab, sy_tab, maxlen = decode_tables(codes)

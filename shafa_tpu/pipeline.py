@@ -4,10 +4,10 @@ Each module reads/writes the sidecar formats of formats.py and hands the
 "current path" forward exactly like the reference's path hand-off protocol
 (shafa.c:135-142): F: file -> file.rle, C: x -> x.shaf, D: strips extensions.
 
-Compute is delegated to a pluggable backend (numpy oracle or the JAX/TPU
-backend in device.py) that operates on LISTS of blocks, so the TPU backend can
-batch blocks into padded device arrays and shard them over a mesh — the
-TPU-native replacement for the reference's per-block thread pipeline
+Compute is delegated to a pluggable backend (numpy oracle or the JAX device
+backend in device.py) that operates on LISTS of blocks, so the device backend
+can batch blocks into padded device arrays and shard them over a mesh — the
+device counterpart of the reference's per-block thread pipeline
 (multithread.c:126-194; see SURVEY.md §2 component 7).
 
 Stage resumability: like the reference, every stage persists its complete
@@ -373,7 +373,7 @@ class _Overlap:
     """Read-ahead + ordered write-behind around a streaming compute loop.
 
     The reference's whole runtime layer exists to overlap block N's compute
-    with block N-1's write (multithread.c:70-111); the TPU equivalent is a
+    with block N-1's write (multithread.c:70-111); the equivalent here is a
     one-deep read prefetch plus a single-thread write executor, so disk IO
     of batches k-1 and k+1 overlaps the device work of batch k. Single
     writer thread => writes retain submission order. Errors surface at the

@@ -37,8 +37,11 @@ def build(force: bool = False) -> str | None:
     if not force and os.path.exists(_SO) and (
             os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
         return _SO
+    # a per-process temp name: concurrent first uses (test workers) each
+    # build their own copy and rename it into place atomically
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-           "-o", _SO + ".tmp", _SRC]
+           "-o", tmp, _SRC]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired):
@@ -48,7 +51,7 @@ def build(force: bool = False) -> str | None:
         print(f"shafa_tpu.runtime: native build failed:\n{r.stderr}",
               file=sys.stderr)
         return None
-    os.replace(_SO + ".tmp", _SO)
+    os.replace(tmp, _SO)
     return _SO
 
 

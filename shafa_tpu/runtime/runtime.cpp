@@ -1,7 +1,7 @@
 // shafa-tpu native runtime: host-side hot loops as a C-ABI shared library.
 //
-// The reference implements its whole runtime in C (src/modules/*.c); the TPU
-// build keeps device compute in XLA/Pallas and moves the *host* hot paths
+// The reference implements its whole runtime in C (src/modules/*.c); this
+// build keeps device compute in XLA and moves the *host* hot paths
 // here: Shannon-Fano code construction (module T, t.c:74-210) and the
 // .freq/.cod sidecar ASCII codecs (f.c:89-119 writer; t.c:27-65, c.c:115-177,
 // d.c:466-504 readers).  At 100 GiB / 64 KiB blocks these paths touch ~1.6M

@@ -1,4 +1,4 @@
-"""CLI behavior: reference-compatible flags + TPU-side extension flags."""
+"""CLI behavior: reference-compatible flags + device-side extension flags."""
 
 import json
 import os
@@ -56,6 +56,20 @@ def test_cli_roundtrip_with_check_and_json(tmp_path, capsys):
                 if f.endswith(".shaf"))
     os.rename(path, path + ".orig")
     assert run_cli([shaf, "--backend", "numpy", "--check"]) == 0
+    with open(path, "rb") as fp:
+        assert fp.read() == data
+
+
+def test_cli_device_roundtrip_in_process(tmp_path):
+    """Compress then decompress through cli.main on the default (jax)
+    backend, in this process, as chip_smoke.py drives it."""
+    data = mixed(150_000, seed=37)
+    path = _write(tmp_path, "f.bin", data)
+    assert run_cli([path, "-b", "K"]) == 0
+    shaf = next(str(tmp_path / f) for f in os.listdir(tmp_path)
+                if f.endswith(".shaf"))
+    os.remove(path)
+    assert run_cli([shaf]) == 0
     with open(path, "rb") as fp:
         assert fp.read() == data
 

@@ -78,9 +78,9 @@ def test_fused_decode_roundtrip(tmp_path):
 
 
 def test_fused_decode_mixed_code_widths(tmp_path):
-    # One skewed block (codes > 16 bits) must not reroute the <=16-bit
-    # blocks off the fast decode chain: fused_decode splits the batch by
-    # code width and decodes each group at its own state width.
+    # fused_decode decodes blocks with codes over 16 bits apart from the
+    # rest (their longer payloads would pad the whole batch); both groups
+    # must land back in block order.
     from shafa_tpu import codes as codes_mod, oracle
 
     rng = np.random.default_rng(55)
